@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one CUDA card: DeepIM render-and-
-compare refinement at lm_flownet width (FlowNetS, 512x512 zoom, 8 ROIs,
-13 classes, 4 iterations, 5120-face meshes, 480x640 frames).
+"""Smoke run of the PyTorch/CUDA port on one CUDA card, over its two paths:
+
+  * DeepIM render-and-compare refinement at lm_flownet width (FlowNetS,
+    512x512 zoom, 8 ROIs, 13 classes, 4 iterations, 5120-face meshes,
+    480x640 frames);
+  * the stage-II self-supervised pose step at stage2_pose_flagship (GDRN
+    with resnest50d, 256² ROI, 64² output, 13 classes, 8 ROIs, 1280-face
+    icospheres, 32 px tiles with K = 128, bf16 compute, Ranger, EMA).
 
     python3 chip_smoke.py
 
-Random unit-gain weights from a seed, with identity-biased pose heads so
-that the refined pose stays in view and still depends on the render.
-Phases (each checks; a failure exits non-zero):
-  1. build every CUDA kernel of the path from the sources in the checkout;
-  2. hold each kernel against its plain PyTorch version at the path's
-     shapes and time both (CUDA events; see cuda_ms);
-  3. run the whole eval path in float32 with TF32 off, once through the
+Weights are random, drawn from a seed. Phases (each checks; a failure
+exits non-zero):
+  1. build every CUDA kernel in csrc/ from the sources in the checkout;
+  2. hold the fine-raster forward (B1) against its plain PyTorch version at
+     the DeepIM shapes and time both (CUDA events; see cuda_ms);
+  3. run the DeepIM eval path in float32 with TF32 off, once through the
      kernel and once through the plain fine stage: the refined poses agree,
      while a spoilt render moves them by more than the tolerance;
-  4. serve requests in the configured bf16: finite, orthonormal poses, and
-     the kernel launched once per refine iteration.
+  4. serve DeepIM requests in the configured bf16: finite, orthonormal
+     poses, and B1 launched once per refine iteration;
+  5. hold B1 (with the soft silhouette), the fine-raster backward (B2) and
+     the LAB value-and-gradient (B3) against their plain versions on one
+     stage-II step's own inputs, and time all three;
+  6. run two float32 stage-II steps through the kernels and two through
+     the plain versions: losses and parameters agree, the parameters moved
+     well past the tolerance, and a step without the render's losses ends
+     elsewhere;
+  7. time bf16 stage-II steps, with one launch each of B1, B2 and B3 per
+     step, and hold their first losses against the float32 step's.
 Prints a `record` line with every measurement, a `kernels` line, a `path`
 line and the card's name and power limit, then {"ok": true, "device": ...}
 as the last line. Exits non-zero without a CUDA device.
@@ -55,9 +68,53 @@ PERTURB = {"attr zeroed": True, "attr shifted 1 px": False}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# f32 operations per (pixel, valid candidate) in the kernel's loop without
-# the silhouette: edge functions and barycentrics 18, inside and z tests 4
-OPS_TEST = 22
+# f32 operations that the functions need, counted from the kernels'
+# sources (a comparison, a transcendental or a division counts as one).
+# Per (pixel, valid candidate): the edge functions (6 offsets, 4 products,
+# 2 differences), the barycentrics (4) and the inside and z tests (4).
+OPS_TEST = 20
+# Per (occupied tile, valid candidate), once: the signed area and its
+# inverse (9), each edge's vector, squared length and floor (3 x 6).
+OPS_CAND = 27
+# Per (uncovered pixel, valid candidate), for the soft silhouette (a covered
+# pixel's prob is exactly 1): each edge's offset, foot parameter, residual
+# and squared length (3 x 15), their minimum (2), exponent and exponential
+# (3), 1 - p and the product (2).
+OPS_SEG = 52
+# B1, per covered pixel: clip, renormalise (12), perspective weights and
+# depth (10), attributes (5 per channel, D = 3)
+OPS_WIN_FWD = 37
+# B2, per covered pixel with a depth or attr cotangent: the forward's
+# winner again (22), the attribute and perspective chain (62), the clip,
+# renormalise, edge-function and area chain to the six vertex coordinates
+# (69). Per (uncovered pixel with a prob cotangent, valid candidate), on top
+# of OPS_SEG: the leave-one-out factor (2), d(d^2) (4), the choice of the
+# nearest edge (4), its gradient from the foot and residual already formed
+# (8) and the sum over pixels (4).
+OPS_WIN_BWD = 153
+OPS_SEG_BWD = 22
+OPS_LAB = 135
+
+# stage-II (phases 5-7)
+S2_BATCH = 8                      # ROIs per step (bench.py::build_stage2)
+S2_SIGMA = 1.5                    # soft-silhouette sigma of the student render
+S2_TIMED_STEPS = 20               # bf16 steps timed after one warm-up step
+# kernel launches per step (B3's wrapper launches a per-block pass and the
+# reduction of its partials)
+S2_LAUNCHES = {"fine_raster_fwd": 1, "fine_raster_bwd": 1, "lab_value_grad": 2}
+S2_LR = 1e-3                      # phase 6: no warm-up and a visible lr
+TOL_B2 = 1e-4                     # d ftab, of its largest magnitude
+TOL_B3_VALUE = 1e-5               # LAB value, relative
+TOL_B3_GRAD = 1e-6                # LAB gradient, of its largest magnitude
+TOL_S2_LOSS = 1e-4                # fp32 step losses, kernel vs plain, relative
+# fp32 params after 2 steps, kernel vs plain: the second step's L1 terms
+# (teacher vs student, nearly equal) flip sign on rounding-level differences,
+# which moves single parameters by ~lr; the first reading on an H100 was
+# 1.7e-5 with the parameters moved by 7.8e-3 and the control 4.2e-3 away
+TOL_S2_PARAMS = 1e-4
+S2_MOVED = 20                     # the steps move the params > 20x the tolerance
+TOL_S2_BF16 = 2e-3                # bf16 vs fp32 losses of the first step:
+                                  # 13x the 1.55e-4 read on an H100
 
 
 def require(ok, *what) -> None:
@@ -153,6 +210,26 @@ def zoom_frame(cfg, batch):
     return boxes, zoom_K(batch["K"], boxes, (d.input_h, d.input_w))
 
 
+def compare_raster(got, ref, key):
+    """Mask and face_id mismatch shares, and the largest float error where
+    both agree; checks them against TOL_MISMATCH and TOL_KERNEL."""
+    mis_mask = (got.mask != ref.mask).float().mean().item()
+    mis_face = (got.face_id != ref.face_id).float().mean().item()
+    agree = (got.mask == ref.mask) & (got.face_id == ref.face_id)
+    errs = {}
+    for name in ("prob", "depth", "attr", "bary"):
+        diff = (getattr(got, name) - getattr(ref, name)).abs()
+        if diff.ndim == 4:
+            diff = diff.amax(-1)
+        errs[name] = diff[agree].max().item()
+    require(ref.mask.sum() > 0, key, "the render is empty")
+    require(mis_mask <= TOL_MISMATCH and mis_face <= TOL_MISMATCH, key,
+            mis_mask, mis_face)
+    require(max(errs.values()) <= TOL_KERNEL, key, errs)
+    return {"mask_mismatch": mis_mask, "face_id_mismatch": mis_face,
+            "max_abs_err": errs}
+
+
 def check_kernel(cfg, batch):
     """Phase 2: the fine-raster kernel against its plain version on the
     first iteration's render inputs, for with_prob x persp."""
@@ -164,34 +241,21 @@ def check_kernel(cfg, batch):
     args = (batch["verts"], batch["faces"], batch["colors"], Kz,
             batch["init_rot"], batch["init_trans"])
     ftab, cand = R.raster_inputs(*args, h, w, r.tile_px, r.faces_per_tile)
-    variants, max_err = {}, 0.0
+    variants, masks, max_err = {}, {}, 0.0
     for with_prob in (False, True):
         for persp in (True, False):
             call = (ftab, cand, h, w, r.tile_px, 1.0, with_prob, persp)
             got = RC.fine_raster(*call)
             torch.cuda.synchronize()
             ref = RC.fine_raster_plain(*call)
-            mis_mask = (got.mask != ref.mask).float().mean().item()
-            mis_face = (got.face_id != ref.face_id).float().mean().item()
-            agree = (got.mask == ref.mask) & (got.face_id == ref.face_id)
-            errs = {}
-            for name in ("prob", "depth", "attr", "bary"):
-                diff = (getattr(got, name) - getattr(ref, name)).abs()
-                if diff.ndim == 4:
-                    diff = diff.amax(-1)
-                errs[name] = diff[agree].max().item()
             key = f"prob={with_prob},persp={persp}"
-            require(ref.mask.sum() > 0, key, "the render is empty")
-            require(mis_mask <= TOL_MISMATCH and mis_face <= TOL_MISMATCH,
-                    key, mis_mask, mis_face)
-            require(max(errs.values()) <= TOL_KERNEL, key, errs)
-            variants[key] = {
-                "mask_mismatch": mis_mask, "face_id_mismatch": mis_face,
-                "max_abs_err": errs,
-                "ms": cuda_ms(lambda: RC.fine_raster(*call)),
-                "plain_ms": cuda_ms(lambda: RC.fine_raster_plain(*call),
-                                    reps=2)}
-            max_err = max(max_err, *errs.values())
+            v = compare_raster(got, ref, key)
+            masks[key] = ref.mask
+            v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
+            v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
+                                    reps=2)
+            variants[key] = v
+            max_err = max(max_err, *v["max_abs_err"].values())
 
     # least time for the main path's variant (no silhouette, persp): each
     # input read once (the candidate lists, and of the face table only the
@@ -199,16 +263,12 @@ def check_kernel(cfg, batch):
     # once; f32 work of the valid candidates this data has
     B, F, C = ftab.shape
     D = (C - RC._GEO) // 3
-    ids = cand.view(B, -1)
-    face_rows = sum(int(torch.unique(ids[i][ids[i] >= 0]).numel())
-                    for i in range(B))
-    bytes_moved = (face_rows * C * 4 + cand.numel() * 4
+    n = raster_counts(ftab, cand, masks["prob=False,persp=True"], r.tile_px,
+                      h, w)
+    bytes_moved = (n["face_rows_read"] * C * 4 + cand.numel() * 4
                    + B * h * w * (4 + D + 3) * 4)
-    b_of_t = torch.arange(cand.shape[0], device=cand.device) // (
-        cand.shape[0] // B)
-    valid = (cand >= 0) & (ftab[b_of_t[:, None], cand.long().clamp_min(0), 7] > 0.5)
-    ops = float(valid.sum().item()) * r.tile_px ** 2 * OPS_TEST
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    ops = b1_ops(n, with_prob=False)
+    lim = bound(bytes_moved, ops)
     main = variants["prob=False,persp=True"]
     fd = R.face_data(*args)
     timing = {
@@ -223,14 +283,11 @@ def check_kernel(cfg, batch):
         "source": "self6dpp_tpu_torch/csrc/fine_raster_fwd.cu",
         "replaces": "self6dpp_tpu/ops/raster_pallas.py:420",
         "launches": None, "max_abs_err": max_err, "ms": main["ms"],
-        "plain_ms": main["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
-    detail = {"variants": variants, "bytes": bytes_moved,
-              "face_rows_read": face_rows, "face_rows": B * F, "f32_ops": ops,
-              "valid_candidate_slots": int(valid.sum().item()),
-              "tiles": int(cand.shape[0]),
-              "occupied_tiles": int(valid.any(1).sum().item()), **timing}
+        "plain_ms": main["plain_ms"], "bound_ms": lim["bound_ms"],
+        "bound_by": lim["bound_by"], "library_ms": None}
+    counts = {k: v for k, v in n.items() if not k.startswith("_")}
+    detail = {"variants": variants, "bytes": bytes_moved, "f32_ops": ops,
+              **counts, **timing}
     return kernel, detail
 
 
@@ -389,6 +446,352 @@ def serve(cfg, device, requests, ref32):
         "bf16_vs_fp32_max_abs": bf16_err, "max_orthonormal_err": ortho}
 
 
+# ---- stage-II pose step (phases 5-7) -------------------------------------
+
+def stage2_cfg(dtype_name, lr=None, base=None):
+    """stage2_pose_flagship (or `base`) in the given compute dtype; with
+    `lr`, no warm-up and that base learning rate."""
+    from self6dpp_tpu_torch.config import stage2_pose_flagship
+    cfg = base if base is not None else stage2_pose_flagship()
+    if lr is not None:
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, base_lr=lr, warmup_iters=0))
+    return dataclasses.replace(cfg, dist=dataclasses.replace(
+        cfg.dist, compute_dtype=dtype_name))
+
+
+def stage2_inputs(cfg, device, batch_size):
+    """One float32 forward of the stage-II step: the face table and
+    candidates of the student's pose, the cotangents the losses send to
+    the render's prob, depth and attr (zero where no loss reads one), and
+    LAB's inputs (masked render, masked image, pseudo mask)."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.gdrn_engine import model_inputs
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    _, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
+    ld, ren, pseudo = se.forward_losses(cfg, state, batch)
+    outs = [ren["prob"], ren["depth"], ren["color"]]
+    grads = torch.autograd.grad(sum(ld.values()), outs, allow_unused=True)
+    cts = [torch.zeros_like(o) if g is None else g.contiguous()
+           for o, g in zip(outs, grads)]
+    with torch.no_grad():
+        out = state.model(*model_inputs(batch))
+    cls = batch["roi_cls"].long()
+    s, r = cfg.model.input_res, cfg.renderer
+    ftab, cand = R.raster_inputs(
+        batch["mesh_verts"][cls], batch["mesh_faces"][cls],
+        batch["mesh_colors"][cls], batch["roi_zoom_K"], out["rot"].float(),
+        out["trans"].float(), s, s, r.tile_px, r.faces_per_tile)
+    vis = pseudo["vis_mask"].contiguous()
+    lab = ((ren["color"].detach() * vis[..., None]).contiguous(),
+           (batch["roi_img"] * vis[..., None]).contiguous(), vis)
+    return ftab, cand, cts, lab
+
+
+def raster_counts(ftab, cand, mask, tile_px, height, width, cts=None):
+    """What this render's data makes the fine stage do: face rows the
+    candidate lists name, valid candidate slots per tile, occupied tiles (a
+    valid candidate), boundary tiles (occupied, not fully covered), covered
+    pixels and, per tile, the in-image and the uncovered pixels. With the
+    cotangents cts = (dprob, ddepth, dattr), per tile the pixels with any
+    cotangent, the covered ones with a depth or attr cotangent and the
+    uncovered ones with a prob cotangent: the pixels B2 needs."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    B, F, _ = ftab.shape
+    T = cand.shape[0]
+    th, tw = -(-height // tile_px), -(-width // tile_px)
+    b_of_t = torch.arange(T, device=cand.device) // (T // B)
+    valid = (cand >= 0) & (ftab[b_of_t[:, None], cand.long().clamp_min(0), 7] > 0.5)
+    n_valid = valid.sum(1).float()                                    # (T,)
+
+    def tiles(x):                       # (T, P), 0 past the ragged edge
+        return RC._tile_pixels(x.float(), tile_px, th * tw, tw)
+    covered = tiles(mask) > 0.5
+    uncovered = tiles(1.0 - mask) > 0.5
+    occupied = n_valid > 0
+    boundary = occupied & uncovered.any(1)
+    ids = cand.view(B, -1)
+    face_rows = sum(int(torch.unique(ids[i][ids[i] >= 0]).numel())
+                    for i in range(B))
+    out = {"face_rows_read": face_rows, "face_rows": B * F, "tiles": T,
+           "valid_candidate_slots": int(n_valid.sum().item()),
+           "occupied_tiles": int(occupied.sum().item()),
+           "boundary_tiles": int(boundary.sum().item()),
+           "covered_pixels": int(mask.sum().item()),
+           "uncovered_pixels_of_occupied_tiles":
+               int(uncovered.sum(1)[occupied].sum().item()),
+           "_n_valid": n_valid,
+           "_pixels": tiles(torch.ones_like(mask)).sum(1),
+           "_uncovered": uncovered.sum(1).float()}
+    if cts is not None:
+        dprob, ddepth, dattr = (c != 0 for c in cts)
+        win = covered & (tiles(ddepth | dattr.any(-1)) > 0.5)
+        sil = uncovered & (tiles(dprob) > 0.5)
+        out.update({
+            "covered_pixels_with_depth_or_attr_cotangent": int(win.sum()),
+            "uncovered_pixels_with_prob_cotangent": int(sil.sum()),
+            "_active": tiles(dprob | ddepth | dattr.any(-1)).sum(1),
+            "_win": win.sum(1).float(), "_sil": sil.sum(1).float()})
+    return out
+
+
+def b1_ops(n, with_prob=True):
+    """f32 operations of the fine forward (raster_counts' n)."""
+    nv = n["_n_valid"]
+    return (float((nv * n["_pixels"]).sum()) * OPS_TEST
+            + float(nv.sum()) * OPS_CAND
+            + n["covered_pixels"] * OPS_WIN_FWD
+            + with_prob * float((nv * n["_uncovered"]).sum()) * OPS_SEG)
+
+
+def b2_ops(n):
+    """f32 operations of the fine backward on the cotangents counted in n
+    (raster_counts with cts): the winner or the coverage of every pixel
+    with a cotangent, the winner's chain where depth or attr has one, the
+    silhouette product and its gradient where prob has one."""
+    nv = n["_n_valid"]
+    return (float((nv * n["_active"]).sum()) * OPS_TEST
+            + float(nv.sum()) * OPS_CAND
+            + float(n["_win"].sum()) * OPS_WIN_BWD
+            + float((nv * n["_sil"]).sum()) * (OPS_SEG + OPS_SEG_BWD))
+
+
+def bound(bytes_moved, ops):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return {"bytes": bytes_moved, "f32_ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_stage2_kernels(cfg, device, batch_size):
+    """Phase 5: B1 with the soft silhouette, B2 and B3 against their plain
+    versions on one stage-II step's inputs, timed, with their bounds.
+    B2 is held twice: on the cotangents the loss suite sends (only prob's
+    is non-zero in this slice: LAB's gradient is injected into a tensor no
+    later loss reads) and on seeded random ones for prob, depth and attr."""
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    ftab, cand, cts, lab = stage2_inputs(cfg, device, batch_size)
+    s, tp = cfg.model.input_res, cfg.renderer.tile_px
+    B, F, C = ftab.shape
+    D = (C - RC._GEO) // 3
+    P = tp * tp
+    fwd_call = (ftab, cand, s, s, tp, S2_SIGMA, True, True)
+    got = RC.fine_raster(*fwd_call)
+    torch.cuda.synchronize()
+    ref = RC.fine_raster_plain(*fwd_call)
+    b1 = compare_raster(got, ref, "stage-II B1")
+    n = raster_counts(ftab, cand, ref.mask, tp, s, s, cts)
+    b1["ms"] = cuda_ms(lambda: RC.fine_raster(*fwd_call))
+    b1["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*fwd_call), reps=2)
+    b1.update(bound(
+        n["face_rows_read"] * C * 4 + cand.numel() * 4
+        + B * s * s * (4 + D + 3) * 4, b1_ops(n)))
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    rand_cts = [torch.randn(c.shape, generator=g).to(device) for c in cts]
+    b2 = {}
+    for name, c in (("loss", cts), ("random", rand_cts)):
+        call = (ftab, cand, *c, s, s, tp, S2_SIGMA, True, True)
+        got = RC.fine_raster_bwd(*call)
+        torch.cuda.synchronize()
+        ref2 = RC.fine_raster_bwd_plain(*call)
+        scale = ref2.abs().max().item()
+        err = (got - ref2).abs().max().item() / max(scale, 1e-30)
+        require(scale > 0, "B2: zero gradient", name)
+        require(err <= TOL_B2, "B2 vs plain", name, err)
+        b2[name] = {"rel_err": err, "max_abs": scale}
+    call = (ftab, cand, *cts, s, s, tp, S2_SIGMA, True, True)
+    b2["ms"] = cuda_ms(lambda: RC.fine_raster_bwd(*call))
+    b2["plain_ms"] = cuda_ms(lambda: RC.fine_raster_bwd_plain(*call), reps=2)
+    b2.update(bound(
+        n["face_rows_read"] * C * 4 + cand.numel() * 4
+        + n["occupied_tiles"] * P * (2 + D) * 4 + B * F * C * 4, b2_ops(n)))
+
+    before = LC.lab_value_grad.launches
+    val, grad = LC.lab_value_grad(*lab, True)
+    val2, _ = LC.lab_value_grad(*lab, True)
+    torch.cuda.synchronize()
+    require(LC.lab_value_grad.launches
+            == before + 2 * S2_LAUNCHES["lab_value_grad"], "B3 launches")
+    rval, rgrad = LC.lab_value_grad_plain(*lab, True)
+    scale = rgrad.abs().max().item()
+    gerr = (grad - rgrad).abs().max().item()
+    b3 = {"value": val.item(), "plain_value": rval.item(),
+          "value_rel_err": abs(val.item() - rval.item()) / abs(rval.item()),
+          "grad_max_abs_err": gerr, "grad_err": gerr / scale,
+          "same_bits_twice": bool(torch.equal(val, val2)),
+          "mask_pixels": lab[2].sum().item()}
+    require(rval.item() > 0 and scale > 0, "B3: empty LAB input")
+    require(b3["same_bits_twice"], "B3 value differs between runs")
+    require(b3["value_rel_err"] <= TOL_B3_VALUE, "B3 value", b3)
+    require(b3["grad_err"] <= TOL_B3_GRAD, "B3 gradient", b3)
+    b3["ms"] = cuda_ms(lambda: LC.lab_value_grad(*lab, True))
+    b3["plain_ms"] = cuda_ms(lambda: LC.lab_value_grad_plain(*lab, True))
+    npix = lab[2].numel()
+    b3.update(bound(npix * (3 + 3 + 1 + 3) * 4, npix * OPS_LAB))
+
+    counts = {k: v for k, v in n.items() if not k.startswith("_")}
+    return {"B1": b1, "B2": b2, "B3": b3, "counts": counts}
+
+
+def params_of(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def max_abs_diff(a, b):
+    return max((a[k] - b[k]).abs().max().item() for k in a)
+
+
+def run_steps(cfg, device, batch_size, n, impl="kernel"):
+    """n stage-II steps from the seeded weights: (initial params, metrics
+    per step, final params)."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    model, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
+    init = params_of(model)
+    step = se.make_self_train_step(cfg, model, impl=impl)
+    metrics = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    return init, metrics, params_of(model)
+
+
+def loss_err(a, b):
+    """Largest relative difference of two steps' loss terms. A term below
+    1e-3 of the total loss is measured against 1e-3 of the total instead of
+    against itself: the teacher-student terms are differences of nearly
+    equal numbers while the teacher is still close to the student (0 at
+    the first step, where it is the student's copy)."""
+    require(set(a) == set(b), "loss keys", sorted(a), sorted(b))
+    floor = 1e-3 * abs(b["total_loss"])
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), floor) for k in a)
+
+
+def check_stage2_fp32(cfg32, device, batch_size):
+    """Phase 6: two float32 steps through the kernels and two through the
+    plain versions, from the same weights and batch, with TF32 off and
+    cuDNN deterministic: losses within TOL_S2_LOSS, parameters within
+    TOL_S2_PARAMS. The check can fail: the parameters moved more than
+    S2_MOVED x TOL_S2_PARAMS, and a step with the mask and LAB weights at 0
+    (the only losses that read the render) ends more than TOL_S2_PARAMS
+    away."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        init, mk, pk = run_steps(cfg32, device, batch_size, 2, "kernel")
+        _, mp, pp = run_steps(cfg32, device, batch_size, 2, "plain")
+        ctrl = dataclasses.replace(cfg32, self_sup=dataclasses.replace(
+            cfg32.self_sup, mask_lw=0.0, lab_lw=0.0))
+        _, mc, pc = run_steps(ctrl, device, batch_size, 2, "kernel")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for m in mk:
+        require(all(np.isfinite(v) for v in m.values()), "non-finite loss", m)
+    detail = {
+        "losses_kernel": mk, "losses_plain": mp, "losses_control": mc,
+        "loss_rel_err": max(loss_err(a, b) for a, b in zip(mk, mp)),
+        "params_kernel_vs_plain_max_abs": max_abs_diff(pk, pp),
+        "params_moved_max_abs": max_abs_diff(pk, init),
+        "params_vs_control_max_abs": max_abs_diff(pk, pc),
+        "lr": cfg32.solver.base_lr}
+    require(detail["loss_rel_err"] <= TOL_S2_LOSS, "fp32 step losses",
+            detail["loss_rel_err"])
+    require(detail["params_kernel_vs_plain_max_abs"] <= TOL_S2_PARAMS,
+            "fp32 step params", detail["params_kernel_vs_plain_max_abs"])
+    require(detail["params_moved_max_abs"] > S2_MOVED * TOL_S2_PARAMS,
+            "the steps left the params where they were",
+            detail["params_moved_max_abs"])
+    require(detail["params_vs_control_max_abs"] > TOL_S2_PARAMS,
+            "the render's gradient did not reach the params",
+            detail["params_vs_control_max_abs"])
+    return mk[0], detail
+
+
+def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS):
+    """Phase 7: stage-II steps in the configured compute dtype. One
+    warm-up step, whose losses are held against the float32 step's (the
+    same weights and batch) within TOL_S2_BF16; then `steps` timed steps
+    (host clock around each, ending in a synchronize) with CUDA events at
+    the step's phase boundaries, the launch counts set to 0 just before
+    and read just after."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    model, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
+    step = se.make_self_train_step(cfg, model)
+    state, warm = step(state, batch)
+    torch.cuda.synchronize()
+    warm = {k: float(v) for k, v in warm.items()}
+    bf16_err = loss_err(warm, ref32)
+    require(bf16_err <= TOL_S2_BF16, "bf16 vs fp32 losses", warm, ref32)
+
+    torch.cuda.reset_peak_memory_stats()
+    RC.fine_raster.launches = 0
+    RC.fine_raster_bwd.launches = 0
+    LC.lab_value_grad.launches = 0
+    times, phases, metrics = [], [], []
+    for _ in range(steps):
+        marks = []
+        mark = se.event_marker(marks)
+        t0 = time.perf_counter()
+        mark("start")
+        state, m = step(state, batch, mark)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        phases.append({b[0]: a[1].elapsed_time(b[1])
+                       for a, b in zip(marks, marks[1:])})
+        metrics.append(m)
+    launches = {"fine_raster_fwd": RC.fine_raster.launches,
+                "fine_raster_bwd": RC.fine_raster_bwd.launches,
+                "lab_value_grad": LC.lab_value_grad.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, k in launches.items():
+        require(k == S2_LAUNCHES[name] * steps, "launches per step", name, k,
+                steps)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "non-finite loss", m)
+    require(all(torch.isfinite(p).all().item() for p in model.parameters()),
+            "non-finite parameters")
+    require(set(metrics[-1]) == set(ref32), "loss keys")
+    phase_ms = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
+    return launches, {
+        "steps": steps, "ms_per_step": float(np.median(times)),
+        "step_ms": times, "phase_ms_median": phase_ms,
+        "phase_ms_sum": float(sum(phase_ms.values())),
+        "peak_mem_gib": peak, "bf16_vs_fp32_loss_rel_err": bf16_err,
+        "first_losses_bf16": warm,
+        "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+
+
+def stage2_kernel_lines(k5, launches):
+    """The `kernels` entries of B1 (stage-II variant), B2 and B3."""
+    rows = [("fine_raster_fwd[stage2]", "fine_raster_fwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:420", "B1",
+             "fine_raster_fwd",
+             max(k5["B1"]["max_abs_err"].values())),
+            ("fine_raster_bwd", "fine_raster_bwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:459", "B2",
+             "fine_raster_bwd", k5["B2"]["loss"]["rel_err"]
+             * k5["B2"]["loss"]["max_abs"]),
+            ("lab_value_grad", "lab_value_grad.cu",
+             "self6dpp_tpu/ops/lab_pallas.py:171", "B3", "lab_value_grad",
+             k5["B3"]["grad_max_abs_err"])]
+    out = []
+    for name, src, replaces, key, count, err in rows:
+        d = k5[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"self6dpp_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[count], "max_abs_err": err, "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None})
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -407,7 +810,7 @@ def main() -> int:
     device = torch.device("cuda")
     cfg = lm_flownet()
     card = card_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(libs)} in {build_s:.2f} s", flush=True)
@@ -418,6 +821,8 @@ def main() -> int:
                 for i in range(1 + REQUESTS)]
     torch.cuda.synchronize()
 
+    clock = {}
+    t0 = time.perf_counter()
     kernel, kdetail = check_kernel(cfg, requests[0])
     print(f"kernel vs plain: {json.dumps(kdetail['variants'])}", flush=True)
     ref32, pdetail = check_path_fp32(cfg, device, requests[0])
@@ -425,22 +830,60 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     launches, sdetail = serve(cfg, device, requests, ref32)
     kernel["launches"] = launches
-
     d = cfg.deepim
-    path = {"config": cfg.exp_name, "batch": b, "input_hw": [d.input_h, d.input_w],
-            "frame_hw": list(FRAME_HW), "faces": int(meshes[1].shape[0]),
-            "iterations": d.n_iter_test, "compute_dtype": cfg.dist.compute_dtype,
-            "requests": sdetail["requests"],
-            "ms_per_request": sdetail["ms_per_request"],
-            "render_share": sdetail["render_share"],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "gpu": torch.cuda.get_device_name(0), "card": card}
+    deepim_path = {
+        "config": cfg.exp_name, "batch": b,
+        "input_hw": [d.input_h, d.input_w], "frame_hw": list(FRAME_HW),
+        "faces": int(meshes[1].shape[0]), "iterations": d.n_iter_test,
+        "compute_dtype": cfg.dist.compute_dtype,
+        "requests": sdetail["requests"],
+        "ms_per_request": sdetail["ms_per_request"],
+        "render_share": sdetail["render_share"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    clock["deepim_phases_2_4_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    s2 = stage2_cfg("bfloat16")
+    cfg32 = stage2_cfg("float32", lr=S2_LR, base=s2)
+    k5 = check_stage2_kernels(cfg32, device, S2_BATCH)
+    print("stage-II kernels vs plain: " + json.dumps(
+        {k: v for k, v in k5.items()}), flush=True)
+    clock["stage2_phase5_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s2_ref32, s2_fp32 = check_stage2_fp32(cfg32, device, S2_BATCH)
+    print(f"stage-II fp32 steps: {json.dumps(s2_fp32)}", flush=True)
+    clock["stage2_phase6_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s2_launches, s2_steps = time_stage2(s2, device, S2_BATCH, s2_ref32)
+    print(f"stage-II bf16 steps: {json.dumps(s2_steps)}", flush=True)
+    clock["stage2_phase7_s"] = time.perf_counter() - t0
+    stage2_path = {
+        "config": s2.exp_name, "batch": S2_BATCH,
+        "input_res": s2.model.input_res, "output_res": s2.model.output_res,
+        "backbone": s2.model.backbone.name,
+        "classes": s2.model.num_classes, "faces": 1280,
+        "tile_px": s2.renderer.tile_px,
+        "faces_per_tile": s2.renderer.faces_per_tile,
+        "compute_dtype": s2.dist.compute_dtype,
+        "steps": s2_steps["steps"], "ms_per_step": s2_steps["ms_per_step"],
+        "phase_ms_median": s2_steps["phase_ms_median"],
+        "launches_per_step": {k: v / s2_steps["steps"]
+                              for k, v in s2_launches.items()},
+        "peak_mem_gib": s2_steps["peak_mem_gib"]}
+    clock["total_s"] = time.perf_counter() - t_start
+
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
+              "stage2_kernels": k5, "stage2_fp32": s2_fp32,
+              "stage2_steps": s2_steps, "clock": clock,
               "build_s": build_s, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print("record " + json.dumps(record))
-    print(json.dumps({"kernels": [kernel]}))
-    print(json.dumps({"path": path}))
+    kernels = [kernel] + stage2_kernel_lines(k5, s2_launches)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"path": {"deepim_eval": deepim_path,
+                               "stage2_step": stage2_path,
+                               "gpu": torch.cuda.get_device_name(0),
+                               "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,89 @@
-"""Configuration for the port: own copies of the JAX package's dataclasses.
-
-DeepIMConfig, RendererConfig and DistConfig copy self6dpp_tpu/config/base.py
-field for field, except RendererConfig.impl: the port's fine stage is its
-CUDA kernel on the card (rasterize_batch(impl="plain") is for control runs).
-Config and SolverConfig hold only what the DeepIM eval path reads (the
-training fields come with the training slice).
+"""Configuration for the port: own copies of the JAX package's dataclasses
+(self6dpp_tpu/config/base.py), with the fields the ported paths read, under
+the same names and defaults. RendererConfig drops `impl`: the port's fine
+stage is its CUDA kernel on the card (impl="plain" on the rasterizer and
+the step is for control runs). A setting the port does not have raises
+where it is given (an unknown field) or where it would take effect (a
+value the port does not implement).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    # resnet{18,34,50,101}[d] | resnest{26,50}d | micro (only the ResNet
+    # family is ported)
+    name: str = "resnest50d"
+    input_channels: int = 3
+    out_indices: tuple[int, ...] = (4,)   # stage indices to return (4 = stride 32)
+
+
+@dataclass(frozen=True)
+class GeoHeadConfig:
+    name: str = "TopDownMaskXyzRegionHead"
+    up_types: tuple[str, ...] = ("deconv", "bilinear", "bilinear")
+    deconv_kernel_size: int = 3
+    num_conv_per_block: int = 2
+    feat_dim: int = 256
+    feat_kernel_size: int = 3
+    norm: str = "GN"
+    num_gn_groups: int = 32
+    act: str = "gelu"
+    out_kernel_size: int = 1
+    out_layer_shared: bool = True
+    xyz_class_aware: bool = False
+    mask_class_aware: bool = False
+    region_class_aware: bool = False
+    num_regions: int = 64
+    xyz_bin: int = 64               # > 1: binned xyz, softmax over the bins
+    num_masks: int = 1
+    with_vf: bool = False
+    with_norm: bool = False
+
+
+@dataclass(frozen=True)
+class PnPNetConfig:
+    name: str = "ConvPnPNet"
+    with_extent_feat: bool = False
+    featdim: int = 128
+    rot_type: str = "allo_rot6d"    # allo_rot6d | ego_rot6d | allo_quat | ego_quat
+    trans_type: str = "centroid_z"
+    z_type: str = "REL"             # REL | ABS
+    num_stride2_layers: int = 3
+    num_extra_layers: int = 0
+    norm: str = "GN"
+    num_gn_groups: int = 32
+    act: str = "leakyrelu"
+    drop_prob: float = 0.0
+    flat_op: str = "flatten"        # flatten | avg | avg-max | avg-max-min
+    denormalize_by_extent: bool = True
+    with_2d_coord: bool = True
+    region_attention: bool = True
+    mask_attention: str = "none"    # none | mul | concat
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Of the stage-I loss settings, the one the stage-II step reads: how
+    the mask head is trained, so how its logits become a probability."""
+    mask_loss_type: str = "BCE"     # L1 | BCE | RW_BCE | dice | CE
+
+
+@dataclass(frozen=True)
+class PoseNetConfig:
+    name: str = "GDRN"
+    num_classes: int = 13
+    input_res: int = 256
+    output_res: int = 64
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    geo_head: GeoHeadConfig = field(default_factory=GeoHeadConfig)
+    pnp_net: PnPNetConfig = field(default_factory=PnPNetConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    neck: str = "none"
 
 
 @dataclass(frozen=True)
@@ -75,16 +149,67 @@ class DistConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
+    optimizer: str = "ranger"       # only ranger is ported
+    base_lr: float = 1e-4
+    weight_decay: float = 0.0
+    lr_sched: str = "flat_and_anneal"
+    anneal_method: str = "cosine"   # cosine | step | poly | linear
+    anneal_point: float = 0.72
+    warmup_iters: int = 1000
+    warmup_factor: float = 0.001
+    warmup_method: str = "linear"
+    poly_power: float = 1.0
+    step_gamma: float = 0.1
+    steps: tuple[float, ...] = (0.5, 0.75)
+    grad_clip_norm: float = 35.0    # 0 disables
+    total_iters: int = 100_000
     ims_per_batch: int = 24
+    reference_bs: int = 24          # grad accumulation target batch size
+    ema_decay: float = 0.999
+    ema_warmup_iters: int = 2000
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    model_points: int = 512         # PM-loss points per ROI
+    max_sym_rots: int = 32          # padded symmetry rotation set
+
+
+@dataclass(frozen=True)
+class SelfSupConfig:
+    """Stage-II self-supervised loss weights."""
+    mask_lw: float = 1.0
+    mask_loss_type: str = "RW_BCE"  # RW_BCE | dice | BCE
+    mask_edge_reweight: bool = True
+    perceptual_lw: float = 0.15
+    ms_ssim_lw: float = 1.0
+    lab_lw: float = 0.0
+    lab_no_l: bool = True
+    # "pallas" (the JAX package's kernel form: value and image gradient from
+    # one kernel, the gradient injected into the render's cotangent) is the
+    # port's B3 kernel; "direct" is autograd of ops/color.py::lab_loss
+    lab_impl: str = "pallas"
+    depth_chamfer_lw: float = 0.0
+    vf_lw: float = 0.0
+    norm_lw: float = 0.0
+    pseudo_pm_lw: float = 10.0
+    pseudo_trans_lw: float = 0.0
+    ema_decay: float = 0.999
+    pseudo_pose_type: str = "pose_refine"   # pose_refine | pose_est | teacher
+    refine_with_deepim: bool = False
+    repj_refine: bool = False
 
 
 @dataclass(frozen=True)
 class Config:
     exp_name: str = "default"
     seed: int = 0
+    model: PoseNetConfig = field(default_factory=PoseNetConfig)
     deepim: DeepIMConfig = field(default_factory=DeepIMConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     renderer: RendererConfig = field(default_factory=RendererConfig)
+    self_sup: SelfSupConfig = field(default_factory=SelfSupConfig)
     dist: DistConfig = field(default_factory=DistConfig)
 
 
@@ -101,3 +226,44 @@ def lm_flownet() -> Config:
         ),
         solver=SolverConfig(ims_per_batch=8),
     )
+
+
+def stage2_pose_flagship() -> Config:
+    """The stage-II pose-mode step at the flagship width: GDRN with a
+    resnest50d backbone, 256² ROI, 64² output, 13 classes, bf16 compute;
+    renderer tiles of 32 px with K = 128 (the 1280-face icosphere budget);
+    Ranger at base_lr 1e-4, grad clip 35, EMA 0.999 over a 2000-iteration
+    ramp, 24 images per batch (no accumulation). The loss suite keeps the
+    rendered-mask RW_BCE with edge weights, LAB (kernel form), xyz/region
+    init-pred and pseudo-pose PM + trans; LPIPS, MS-SSIM and depth chamfer
+    are off (weight 0)."""
+    return Config(
+        exp_name="stage2_pose_flagship",
+        model=PoseNetConfig(num_classes=13, input_res=256, output_res=64),
+        solver=SolverConfig(total_iters=100_000, ims_per_batch=24,
+                            reference_bs=24),
+        renderer=RendererConfig(tile_px=32, faces_per_tile=128),
+        self_sup=SelfSupConfig(
+            mask_lw=1.0, ms_ssim_lw=0.0, lab_lw=0.2,
+            lab_impl="pallas", lab_no_l=True, depth_chamfer_lw=0.0,
+            perceptual_lw=0.0, pseudo_pm_lw=10.0, pseudo_trans_lw=1.0),
+    )
+
+
+def stage2_pose_tiny() -> Config:
+    """stage2_pose_flagship cut to test size: micro backbone, 64² ROI, 16²
+    output, 2 classes, head width 16 with 4 GN groups, 4 regions, 16 px
+    tiles; fp32 compute, no LR warm-up and a visible base_lr."""
+    f = stage2_pose_flagship()
+    return dataclasses.replace(
+        f, exp_name="stage2_pose_tiny",
+        model=PoseNetConfig(
+            num_classes=2, input_res=64, output_res=16,
+            backbone=BackboneConfig(name="micro"),
+            geo_head=GeoHeadConfig(feat_dim=16, num_gn_groups=4,
+                                   num_regions=4),
+            pnp_net=PnPNetConfig(featdim=16, num_gn_groups=4)),
+        solver=SolverConfig(base_lr=1e-3, warmup_iters=0, total_iters=100,
+                            ims_per_batch=2, reference_bs=2),
+        renderer=RendererConfig(tile_px=16, faces_per_tile=128),
+        dist=DistConfig(compute_dtype="float32"))

@@ -1,14 +1,19 @@
-"""JAX-package DeepIM params (nested dict of numpy arrays) -> the port's
-state_dict.
+"""JAX-package variables (nested dicts of numpy arrays) -> the port's
+state_dicts, for DeepIM and GDRN.
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
-(flownet_key_map, convert_deepim, _map_block), with its own copy of the maps:
+(flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
+pnp_key_map, _map_block), with its own copy of the maps:
   conv    flax (kh,kw,in,out)            -> torch (out,in,kh,kw)
   deconv  flax (kh,kw,in,out), applied by lax.conv_transpose without a
           spatial flip                   -> torch (in,out,kh,kw), flipped
   fc      flax (in,out)                  -> torch (out,in)
   fc_flat as fc, with the input dim permuted from NHWC flatten order to the
           NCHW order the port (like the reference) flattens in
+  dense   flax Dense (in,out)            -> torch 1x1 conv (out,in,1,1)
+  bn      scale, bias (params), mean, var (batch_stats) -> weight, bias,
+          running_mean, running_var
+  gn      scale, bias                    -> weight, bias
 Raises on any flax leaf left unused and any torch key left unfilled.
 """
 
@@ -19,11 +24,16 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.deepim import DeepIM
 
 _FLOWNET_CONVS = ("conv1", "conv2", "conv3", "conv3_1", "conv4", "conv4_1",
                   "conv5", "conv5_1", "conv6", "conv6_1")
+_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_NORM_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")}
 
 
 def flownet_key_map(with_decoder: bool, flow4: bool) -> dict[str, tuple[str, str]]:
@@ -57,7 +67,107 @@ def deepim_key_map(model: DeepIM) -> dict[str, tuple[str, str]]:
     return m
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+def resnet_key_map(arch: str) -> dict[str, tuple[str, str]]:
+    """{timm module path: (kind, flax module path)} for ResNetBackbone: the
+    stem Conv_i/BatchNorm_i, then BasicBlock_i / Bottleneck_i over all
+    stages with their inner modules in call order."""
+    from .models.backbones.resnet import _STAGE_SPECS
+    kind, depths = _STAGE_SPECS[arch]
+    deep = arch.endswith("d")
+    if deep:
+        m = {"conv1.0": ("conv", "Conv_0"), "conv1.1": ("bn", "BatchNorm_0"),
+             "conv1.3": ("conv", "Conv_1"), "conv1.4": ("bn", "BatchNorm_1"),
+             "conv1.6": ("conv", "Conv_2"), "bn1": ("bn", "BatchNorm_2")}
+    else:
+        m = {"conv1": ("conv", "Conv_0"), "bn1": ("bn", "BatchNorm_0")}
+    flax_block = "BasicBlock" if kind == "basic" else "Bottleneck"
+    widths = (8, 16, 32, 64) if arch == "micro" else (64, 128, 256, 512)
+    i, cin = 0, 64
+    for stage, (w, d) in enumerate(zip(widths, depths), start=1):
+        cout = w if kind == "basic" else w * 4
+        for b in range(d):
+            t, f = f"layer{stage}.{b}", f"{flax_block}_{i}"
+            i += 1
+            stride = 2 if (b == 0 and stage > 1) else 1
+            has_down = stride != 1 or cin != cout
+            cin = cout
+            if kind == "basic":
+                m[f"{t}.conv1"] = ("conv", f"{f}.Conv_0")
+                m[f"{t}.bn1"] = ("bn", f"{f}.BatchNorm_0")
+                m[f"{t}.conv2"] = ("conv", f"{f}.Conv_1")
+                m[f"{t}.bn2"] = ("bn", f"{f}.BatchNorm_1")
+                dn = (f"{f}.Conv_2", f"{f}.BatchNorm_2")
+            elif kind == "bottleneck":
+                for j in (1, 2, 3):
+                    m[f"{t}.conv{j}"] = ("conv", f"{f}.Conv_{j - 1}")
+                    m[f"{t}.bn{j}"] = ("bn", f"{f}.BatchNorm_{j - 1}")
+                dn = (f"{f}.Conv_3", f"{f}.BatchNorm_3")
+            else:  # splat (ResNeSt)
+                sa = f"{f}.SplitAttention_0"
+                m[f"{t}.conv1"] = ("conv", f"{f}.Conv_0")
+                m[f"{t}.bn1"] = ("bn", f"{f}.BatchNorm_0")
+                m[f"{t}.conv2.conv"] = ("conv", f"{sa}.Conv_0")
+                m[f"{t}.conv2.bn0"] = ("bn", f"{sa}.BatchNorm_0")
+                m[f"{t}.conv2.fc1"] = ("dense", f"{sa}.Dense_0")
+                m[f"{t}.conv2.bn1"] = ("bn", f"{sa}.BatchNorm_1")
+                m[f"{t}.conv2.fc2"] = ("dense", f"{sa}.Dense_1")
+                m[f"{t}.conv3"] = ("conv", f"{f}.Conv_1")
+                m[f"{t}.bn3"] = ("bn", f"{f}.BatchNorm_1")
+                dn = (f"{f}.Conv_2", f"{f}.BatchNorm_2")
+            if has_down:
+                j = 1 if deep else 0        # avg-down puts the pool at 0
+                m[f"{t}.downsample.{j}"] = ("conv", dn[0])
+                m[f"{t}.downsample.{j + 1}"] = ("bn", dn[1])
+    return m
+
+
+def geo_head_key_map(up_types=("deconv", "bilinear", "bilinear"),
+                     num_conv_per_block=2) -> dict[str, tuple[str, str]]:
+    """{'features.<i>' path: (kind, flax path)} for TopDownGeoHead."""
+    m: dict[str, tuple[str, str]] = {}
+    idx = nd = ncna = 0
+    for up in up_types:
+        if up == "deconv":
+            m[f"features.{idx}"] = ("deconv", f"ConvTranspose2x_{nd}.ConvTranspose_0")
+            m[f"features.{idx + 1}"] = ("gn", f"Norm_{nd}.GroupNorm_0")
+            nd += 1
+            idx += 3                              # deconv, norm, act
+        else:
+            idx += 1                              # parameter-free upsample
+        for _ in range(num_conv_per_block):
+            m[f"features.{idx}.conv"] = ("conv", f"ConvNormAct_{ncna}.Conv_0")
+            m[f"features.{idx}.gn"] = ("gn", f"ConvNormAct_{ncna}.Norm_0.GroupNorm_0")
+            ncna += 1
+            idx += 1
+    m["out_layer"] = ("conv", "Conv_0")           # shared mask|xyz|region conv
+    return m
+
+
+def pnp_key_map(num_layers: int) -> dict[str, tuple[str, str]]:
+    """{pnp_net path: (kind, flax path)} for ConvPnPNet."""
+    m: dict[str, tuple[str, str]] = {}
+    for i in range(num_layers):
+        m[f"features.{3 * i}"] = ("conv", f"Conv_{i}")
+        m[f"features.{3 * i + 1}"] = ("gn", f"Norm_{i}.GroupNorm_0")
+    m.update({"fc1": ("fc_flat", "Dense_0"), "fc2": ("fc", "Dense_1"),
+              "fc_r": ("fc", "fc_r"), "fc_t": ("fc", "fc_t")})
+    return m
+
+
+def gdrn_key_map(model) -> dict[str, tuple[str, str]]:
+    c = model.cfg
+    m = {f"backbone.{k}": (kind, f"backbone.{v}")
+         for k, (kind, v) in resnet_key_map(c.backbone.name).items()}
+    m.update({f"geo_head_net.{k}": (kind, f"geo_head.{v}") for k, (kind, v) in
+              geo_head_key_map(c.geo_head.up_types,
+                               c.geo_head.num_conv_per_block).items()})
+    n = c.pnp_net.num_stride2_layers + c.pnp_net.num_extra_layers
+    m.update({f"pnp_net.{k}": (kind, f"pnp_net.{v}")
+              for k, (kind, v) in pnp_key_map(n).items()})
+    return m
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
@@ -68,14 +178,16 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def _to_torch_layout(a: np.ndarray, kind: str, flat_hwc: tuple[int, int, int]
-                     ) -> np.ndarray:
+def _to_torch_layout(a: np.ndarray, kind: str,
+                     flat_hwc: tuple[int, int, int] | None) -> np.ndarray:
     if a.ndim == 1:
-        return a                                   # bias
+        return a                                   # bias, norm vectors
     if kind == "conv":
         return a.transpose(3, 2, 0, 1)
     if kind == "deconv":
         return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    if kind == "dense":
+        return a.T[:, :, None, None]
     if kind == "fc_flat":
         h, w, ch = flat_hwc
         cout = a.shape[1]
@@ -83,23 +195,25 @@ def _to_torch_layout(a: np.ndarray, kind: str, flat_hwc: tuple[int, int, int]
     return a.T
 
 
-def flax_to_state_dict(params: dict, model: DeepIM) -> dict[str, torch.Tensor]:
-    """params: the JAX DeepIM's `params` collection. Returns a state_dict
-    that model.load_state_dict takes with strict=True."""
-    flat = _flatten(params)
-    key_map = deepim_key_map(model)
-    c = model.cfg
-    conv6 = model.backbone.conv6_1[0].out_channels
-    flat_hwc = (math.ceil(c.input_h / 64), math.ceil(c.input_w / 64), conv6)
+def _convert(model: nn.Module, flat: dict[str, np.ndarray],
+             key_map: dict[str, tuple[str, str]],
+             flat_hwc: tuple[int, int, int] | None) -> dict[str, torch.Tensor]:
     out, used = {}, set()
     for tk, target in model.state_dict().items():
         mod, leaf = tk.rsplit(".", 1)
         if mod not in key_map:
             raise KeyError(f"no flax source for torch key {tk}")
         kind, fmod = key_map[mod]
-        fk = f"{fmod}.{'kernel' if leaf == 'weight' else leaf}"
+        if leaf == "num_batches_tracked":
+            out[tk] = torch.zeros_like(target)
+            continue
+        leaves = _NORM_LEAVES if kind in ("bn", "gn") else _LEAVES
+        if leaf not in leaves:
+            raise KeyError(f"no flax leaf for torch key {tk}")
+        coll, fleaf = leaves[leaf]
+        fk = f"{coll}.{fmod}.{fleaf}"
         if fk not in flat:
-            raise KeyError(f"flax params lack {fk} (for {tk})")
+            raise KeyError(f"flax variables lack {fk} (for {tk})")
         a = np.ascontiguousarray(_to_torch_layout(flat[fk], kind, flat_hwc))
         if tuple(a.shape) != tuple(target.shape):
             raise ValueError(f"{fk} -> {tk}: shape {a.shape} != "
@@ -108,5 +222,25 @@ def flax_to_state_dict(params: dict, model: DeepIM) -> dict[str, torch.Tensor]:
         used.add(fk)
     unused = sorted(set(flat) - used)
     if unused:
-        raise KeyError(f"flax params left unused: {unused}")
+        raise KeyError(f"flax variables left unused: {unused}")
     return out
+
+
+def flax_to_state_dict(params: dict, model: DeepIM) -> dict[str, torch.Tensor]:
+    """params: the JAX DeepIM's `params` collection. Returns a state_dict
+    that model.load_state_dict takes with strict=True."""
+    c = model.cfg
+    conv6 = model.backbone.conv6_1[0].out_channels
+    flat_hwc = (math.ceil(c.input_h / 64), math.ceil(c.input_w / 64), conv6)
+    return _convert(model, _flatten({"params": params}), deepim_key_map(model),
+                    flat_hwc)
+
+
+def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor]:
+    """variables: the JAX GDRN's {'params': ..., 'batch_stats': ...}.
+    Returns a state_dict that the port's GDRN takes with strict=True."""
+    flat = _flatten({k: variables[k] for k in ("params", "batch_stats")
+                     if k in variables})
+    pn = model.pnp_net
+    flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
+    return _convert(model, flat, gdrn_key_map(model), flat_hwc)

@@ -92,7 +92,7 @@ def make_refine_fn(cfg: Config, model: DeepIM, n_iter: int,
     return refine
 
 
-def _to_device(batch: dict[str, Any], device: torch.device) -> dict[str, Tensor]:
+def to_device(batch: dict[str, Any], device: torch.device) -> dict[str, Tensor]:
     """Arrays -> tensors on `device`, floating point as float32."""
     out = {}
     for k, v in batch.items():
@@ -113,7 +113,7 @@ def make_eval_step(cfg: Config, model: DeepIM, device=None,
                             raster_kw=raster_kw)
 
     def eval_step(batch: dict[str, Any]) -> dict[str, Tensor]:
-        b = _to_device(batch, dev)
+        b = to_device(batch, dev)
         with torch.inference_mode():
             rot, trans = refine(b, b["init_rot"], b["init_trans"])
         return {"rot": rot, "trans": trans}

@@ -1,0 +1,143 @@
+"""Stage-II self-supervised pose-mode loss suite (port of
+self6dpp_tpu/losses/self_loss.py: inject_grad, mask_dilate/mask_erode,
+compute_mask_edge_weights, compute_self_loss_pose).
+
+Ported terms: the rendered-mask loss against the teacher's pseudo mask
+(RW_BCE with edge weights, dice or L1), LAB (kernel B3, whose image
+gradient enters through InjectGrad, or autograd of lab_loss), xyz and
+region init-pred (student vs teacher), pseudo-pose PM and trans. LPIPS,
+MS-SSIM, depth chamfer and the vf/norm terms belong to a later slice:
+compute_self_loss_pose raises when their weights are above 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as Fnn
+from torch import Tensor
+
+from ..config import SelfSupConfig
+from ..ops.color import lab_loss
+from ..ops.lab_cuda import lab_value_grad, lab_value_grad_plain
+from .mask_losses import weighted_ex_loss_probs
+from .pm_loss import pm_loss
+
+_LATER = ("perceptual_lw", "ms_ssim_lw", "depth_chamfer_lw", "vf_lw", "norm_lw")
+
+
+class InjectGrad(torch.autograd.Function):
+    """Identity on x whose backward adds g to x's cotangent. As in the JAX
+    package, g reaches the graph only if something downstream consumes the
+    output: an unused output has no cotangent to add to."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.save_for_backward(g)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (g,) = ctx.saved_tensors
+        return ct + g, None
+
+
+def mask_dilate(mask: Tensor, k: int) -> Tensor:
+    """(B, H, W) binary dilation: a k x k max filter ('same' size)."""
+    return Fnn.max_pool2d(mask[:, None], k, 1, k // 2)[:, 0]
+
+
+def mask_erode(mask: Tensor, k: int) -> Tensor:
+    return 1.0 - mask_dilate(1.0 - mask, k)
+
+
+def compute_mask_edge_weights(mask: Tensor, dilate_ks: int = 11,
+                              erode_ks: int = 11, w_edge: float = 5.0,
+                              edge_lower: bool = True) -> Tensor:
+    """Contour-loss edge weights (edge_utils.py:263-286); mask (B,H,W)."""
+    edge = mask_dilate(mask, dilate_ks) - mask_erode(mask, erode_ks)
+    g = torch.exp(-0.5 * (edge * w_edge) ** 2) / math.sqrt(2 * math.pi)
+    if edge_lower:
+        return g + 1.0
+    return g.max() - g + 1.0
+
+
+def check_supported(cfg: SelfSupConfig) -> None:
+    """Raise for what the pose-mode loss suite does not port yet."""
+    on = [n for n in _LATER if getattr(cfg, n) > 0]
+    if on:
+        raise ValueError(f"{', '.join(on)} > 0: LPIPS, MS-SSIM, depth chamfer "
+                         "and vf/norm belong to the next slice of the port")
+    if cfg.lab_lw > 0 and cfg.lab_impl not in ("pallas", "direct"):
+        raise ValueError(f"lab_impl {cfg.lab_impl!r}: the port has 'pallas' "
+                         "(its CUDA kernel) and 'direct'")
+
+
+def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
+                           pred: dict[str, Tensor], pseudo: dict[str, Tensor],
+                           batch: dict[str, Tensor],
+                           impl: str = "kernel") -> dict[str, Tensor]:
+    """ren: render at the student pose in the ROI frame (color (B,S,S,3),
+    prob, mask, depth); pred: student outputs (rot, trans, coor (B,o,o,3),
+    region_logits); pseudo: teacher labels (vis_mask (B,S,S), vis_mask_lr
+    (B,o,o), rot, trans, coor, region probabilities); batch: roi_img,
+    gt_points, roi_extent, sym_rots, sym_valid. impl 'plain' runs LAB's
+    plain version on any device."""
+    check_supported(cfg)
+    loss: dict[str, Tensor] = {}
+    pseudo_vis = pseudo["vis_mask"]
+
+    if cfg.mask_lw > 0:
+        w = compute_mask_edge_weights(pseudo_vis) if cfg.mask_edge_reweight else None
+        if cfg.mask_loss_type == "RW_BCE":
+            lm = weighted_ex_loss_probs(ren["prob"].clamp(1e-7, 1 - 1e-7),
+                                        pseudo_vis, weight=w)
+        elif cfg.mask_loss_type == "dice":
+            p, t = ren["prob"].flatten(1), pseudo_vis.flatten(1)
+            score = 2.0 * (p * t).sum(1) / (p.sum(1) + t.sum(1) + 0.002)
+            lm = (1.0 - score).mean()
+        else:
+            lm = (ren["prob"] - pseudo_vis).abs().mean()
+        loss["loss_mask_self"] = cfg.mask_lw * lm
+
+    vis_m = pseudo_vis[..., None]
+    ren_m = ren["color"] * vis_m
+    img_m = batch["roi_img"] * vis_m
+    if cfg.lab_lw > 0 and cfg.lab_impl == "pallas":
+        fn = lab_value_grad if impl == "kernel" else lab_value_grad_plain
+        lab_val, lab_g = fn(ren_m.detach(), img_m.detach(), pseudo_vis.detach(),
+                            cfg.lab_no_l)
+        # every later consumer of ren_m reads the injected tensor; in this
+        # slice none does (LPIPS, MS-SSIM are off), so, as in the JAX
+        # package, the LAB term reports its value and adds no gradient
+        ren_m = InjectGrad.apply(ren_m, cfg.lab_lw * lab_g)
+        loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
+    elif cfg.lab_lw > 0:
+        loss["loss_color_ab_obj"] = cfg.lab_lw * lab_loss(
+            ren_m, img_m, mask=pseudo_vis, no_l=cfg.lab_no_l)
+
+    if "coor" in pred and "coor" in pseudo:
+        m = pseudo["vis_mask_lr"][..., None]
+        denom = m.sum().clamp_min(1.0)
+        diff = (pred["coor"] - pseudo["coor"]).abs() * m
+        loss["loss_init_pred_xyz"] = diff.sum() / (denom * 3)
+    if "region_logits" in pred and "region" in pseudo:
+        m = pseudo["vis_mask_lr"][..., None]
+        pr = torch.softmax(pred["region_logits"], dim=-1)
+        loss["loss_region_init_pred"] = ((pr - pseudo["region"]).abs() * m).mean()
+
+    if cfg.pseudo_pm_lw > 0:
+        loss.update(pm_loss(
+            pred["rot"], pseudo["rot"], batch["gt_points"],
+            pred_transes=pred["trans"], gt_transes=pseudo["trans"],
+            extents=batch["roi_extent"], sym_rots=batch.get("sym_rots"),
+            sym_valid=batch.get("sym_valid"), loss_weight=cfg.pseudo_pm_lw,
+            symmetric=True, norm_by_extent=True, r_only=False,
+            disentangle_z=True))
+    if cfg.pseudo_trans_lw > 0:
+        loss["loss_trans_xy"] = cfg.pseudo_trans_lw * (
+            pred["trans"][:, :2] - pseudo["trans"][:, :2]).abs().mean()
+        loss["loss_trans_z"] = cfg.pseudo_trans_lw * (
+            pred["trans"][:, 2] - pseudo["trans"][:, 2]).abs().mean()
+    return loss

@@ -1,0 +1,99 @@
+"""GDR-Net: backbone -> top-down geo head -> Patch-PnP -> differentiable
+pose (port of self6dpp_tpu/models/gdrn.py for the ResNet/ResNeSt backbones,
+the TopDownMaskXyzRegionHead and ConvPnPNet).
+
+Inputs and outputs keep the JAX package's NHWC layout (roi_img (B,S,S,3),
+roi_coord_2d (B,o,o,2), dense outputs (B,o,o,C)); inside, the network runs
+NCHW. Submodule names (backbone, geo_head_net, pnp_net) are the reference
+checkpoint's.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor, nn
+
+from ..config import PoseNetConfig
+from ..ops import pose_decode
+from .backbones.resnet import ResNetBackbone
+from .heads.conv_pnp_net import ConvPnPNet
+from .heads.top_down_head import TopDownGeoHead, gather_class_aware
+
+
+class GDRN(nn.Module):
+    def __init__(self, cfg: PoseNetConfig):
+        super().__init__()
+        c = cfg
+        if c.neck != "none" or c.geo_head.name != "TopDownMaskXyzRegionHead" \
+                or c.pnp_net.name != "ConvPnPNet":
+            raise ValueError("only the ResNet backbone, TopDownMaskXyzRegionHead "
+                             "and ConvPnPNet without a neck are ported")
+        if c.pnp_net.trans_type != "centroid_z":
+            raise ValueError(f"trans_type {c.pnp_net.trans_type!r} belongs to "
+                             "a later slice")
+        self.cfg = cfg
+        self.backbone = ResNetBackbone(c.backbone.name,
+                                       c.backbone.input_channels,
+                                       c.backbone.out_indices)
+        self.geo_head_net = TopDownGeoHead(c.geo_head,
+                                           self.backbone.out_channels,
+                                           c.num_classes)
+        gh, pn = c.geo_head, c.pnp_net
+        region = gh.num_regions if pn.region_attention else 0
+        nin = 3 + (2 if pn.with_2d_coord else 0) + region
+        rot_dim = 6 if pn.rot_type.endswith("rot6d") else 4
+        self.pnp_net = ConvPnPNet(pn, nin, c.output_res, rot_dim)
+
+    def forward(self, roi_img: Tensor, roi_cls: Tensor, roi_cam: Tensor,
+                roi_center: Tensor, roi_wh: Tensor, roi_extent: Tensor,
+                resize_ratio: Tensor, roi_coord_2d: Tensor | None = None,
+                forward_mode: str = "all") -> dict[str, Tensor]:
+        c = self.cfg
+        gh, pn = c.geo_head, c.pnp_net
+        feat = self.backbone(roi_img.permute(0, 3, 1, 2))
+        if isinstance(feat, list):
+            feat = feat[-1]            # the top-down head takes the coarsest
+        maps = self.geo_head_net(feat)
+        maps = gather_class_aware(maps, gh, c.num_classes, roi_cls)
+
+        out: dict[str, Tensor] = {}
+        xyz = maps["xyz"]
+        if gh.xyz_bin > 1:
+            # binned coordinates (.., 3, bin+1); softmax over the bins (the
+            # last is background), expectation over the bin centres
+            b, h, w, _ = xyz.shape
+            bins = xyz.reshape(b, h, w, 3, gh.xyz_bin + 1)
+            out["coor_logits"] = bins
+            soft = torch.softmax(bins[..., :gh.xyz_bin], dim=-1)
+            centers = (torch.arange(gh.xyz_bin, device=xyz.device,
+                                    dtype=soft.dtype) + 0.5) / gh.xyz_bin
+            coor = (soft * centers).sum(-1)
+        else:
+            coor = xyz
+        out["coor"] = coor
+        out["mask_logits"] = maps["mask"]
+        out["region_logits"] = maps["region"]
+        if forward_mode == "geo":
+            return out
+
+        coor_feat = coor
+        if pn.with_2d_coord:
+            if roi_coord_2d is None:
+                raise ValueError("with_2d_coord needs roi_coord_2d")
+            coor_feat = torch.cat([coor_feat, roi_coord_2d.to(coor.dtype)], -1)
+        region_atten = (torch.softmax(maps["region"][..., 1:], dim=-1)
+                        if pn.region_attention else None)
+        rot_rep, pred_t = self.pnp_net(coor_feat, region=region_atten,
+                                       extents=roi_extent)
+        # the pose is decoded in float32 whatever the compute dtype: the
+        # render and the pose losses take it in float32
+        with torch.autocast(rot_rep.device.type, enabled=False):
+            rot_rep, pred_t = rot_rep.float(), pred_t.float()
+            rot_m = pose_decode.rot_rep_to_mat(rot_rep, pn.rot_type)
+            rot, trans = pose_decode.pose_from_centroid_z(
+                rot_m, pred_t[:, :2], pred_t[:, 2:3], roi_cam, roi_center,
+                resize_ratio, roi_wh, is_allo="allo" in pn.rot_type,
+                z_type=pn.z_type)
+        out.update({"rot": rot, "trans": trans, "rot_allo": rot_m,
+                    "pred_t_net": pred_t})
+        return out

@@ -1,0 +1,89 @@
+"""Top-down geometry head: stride-32 feature -> dense maps at output_res
+(port of self6dpp_tpu/models/heads/top_down_head.py: TopDownGeoHead,
+geo_map_channels, emit_geo_maps, gather_class_aware).
+
+Module names follow the reference TopDownMaskXyzRegionHead (`features` as
+one ModuleList: deconv, norm, act, then ConvModules and parameter-free
+upsamples; the shared `out_layer`). forward takes NCHW and returns a dict
+of NHWC maps, the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor, nn
+
+from ...config import GeoHeadConfig
+from ..layers import ConvNormAct, ConvTranspose2x, Norm, Upsample2x, get_act
+
+
+def geo_map_channels(c: GeoHeadConfig, num_classes: int) -> dict[str, int]:
+    """Output channel plan: mask, xyz (3, or 3*(xyz_bin+1) binned), region
+    (num_regions + 1), each times num_classes when class-aware."""
+    if c.with_vf or c.with_norm:
+        raise ValueError("vf/norm head outputs belong to a later slice")
+    xyz_dim = 3 if c.xyz_bin <= 1 else 3 * (c.xyz_bin + 1)
+    return {
+        "mask": c.num_masks * (num_classes if c.mask_class_aware else 1),
+        "xyz": xyz_dim * (num_classes if c.xyz_class_aware else 1),
+        "region": (c.num_regions + 1) * (num_classes if c.region_class_aware
+                                         else 1),
+    }
+
+
+class TopDownGeoHead(nn.Module):
+    def __init__(self, cfg: GeoHeadConfig, in_channels: int,
+                 num_classes: int = 1):
+        super().__init__()
+        c = cfg
+        if not c.out_layer_shared:
+            raise ValueError("split out layers belong to a later slice")
+        self.cfg = cfg
+        self.num_classes = num_classes
+        layers: list[nn.Module] = []
+        cin = in_channels
+        for up in c.up_types:
+            if up == "deconv":
+                layers += [ConvTranspose2x(cin, c.feat_dim, c.deconv_kernel_size),
+                           Norm(c.norm, c.feat_dim, c.num_gn_groups),
+                           get_act(c.act)]
+            else:
+                layers.append(Upsample2x(up))
+            cin_blk = c.feat_dim if up == "deconv" else cin
+            for _ in range(c.num_conv_per_block):
+                layers.append(ConvNormAct(cin_blk, c.feat_dim, c.feat_kernel_size,
+                                          c.norm, c.num_gn_groups, c.act))
+                cin_blk = c.feat_dim
+            cin = c.feat_dim
+        self.features = nn.ModuleList(layers)
+        self.chans = geo_map_channels(c, num_classes)
+        k = c.out_kernel_size
+        self.out_layer = nn.Conv2d(c.feat_dim, sum(self.chans.values()), k, 1,
+                                   k // 2)
+
+    def forward(self, x: Tensor) -> dict[str, Tensor]:
+        for layer in self.features:
+            x = layer(x)
+        out = self.out_layer(x).permute(0, 2, 3, 1)          # NHWC
+        maps, ofs = {}, 0
+        for k, n in self.chans.items():
+            maps[k] = out[..., ofs:ofs + n]
+            ofs += n
+        return maps
+
+
+def gather_class_aware(maps: dict[str, Tensor], cfg: GeoHeadConfig,
+                       num_classes: int, roi_cls: Tensor) -> dict[str, Tensor]:
+    """Select each ROI's class slice of the class-aware (NHWC) maps."""
+    out = dict(maps)
+    flags = {"mask": cfg.mask_class_aware, "xyz": cfg.xyz_class_aware,
+             "region": cfg.region_class_aware}
+    for k, v in maps.items():
+        if not flags.get(k, False):
+            continue
+        n, h, w, c = v.shape
+        per = c // num_classes
+        v = v.reshape(n, h, w, num_classes, per)
+        idx = roi_cls.long()[:, None, None, None, None].expand(n, h, w, 1, per)
+        out[k] = torch.gather(v, 3, idx)[..., 0, :]
+    return out

@@ -67,3 +67,11 @@ def allo_to_ego_mat(translation: Tensor, rot_allo: Tensor,
     q = torch.cat([torch.cos(angle / 2.0)[..., None],
                    axis * torch.sin(angle / 2.0)[..., None]], dim=-1)
     return quat_to_mat(q) @ rot_allo
+
+
+def transform_pts(pts: Tensor, R: Tensor, t: Tensor | None = None) -> Tensor:
+    """pts (..., N, 3), R (..., 3, 3), t (..., 3) -> (..., N, 3)."""
+    out = torch.einsum("...ij,...nj->...ni", R, pts)
+    if t is not None:
+        out = out + t[..., None, :]
+    return out

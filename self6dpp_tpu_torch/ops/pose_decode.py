@@ -1,5 +1,6 @@
-"""Delta-pose decoding for render-and-compare (port of
-self6dpp_tpu/ops/pose_decode.py)."""
+"""Differentiable pose decoding from network outputs (port of
+self6dpp_tpu/ops/pose_decode.py): the GDRN centroid-z decoder and the
+DeepIM delta-pose update."""
 
 from __future__ import annotations
 
@@ -18,6 +19,38 @@ def rot_rep_to_mat(pred_rot: Tensor, rot_type: str) -> Tensor:
     if rot_type.endswith("quat"):
         return quat_to_mat(pred_rot)
     raise ValueError(f"unknown rot_type: {rot_type}")
+
+
+def pose_from_centroid_z(
+    pred_rot_m: Tensor,        # (B, 3, 3) allocentric (or ego) rotation
+    pred_centroid: Tensor,     # (B, 2) centroid offset rel. to roi center / wh
+    pred_z: Tensor,            # (B, 1) z (REL: ratio-normalized, ABS: metres)
+    roi_cam: Tensor,           # (B, 3, 3) intrinsics
+    roi_center: Tensor,        # (B, 2) roi center in px
+    resize_ratio: Tensor,      # (B,) output_res / scale
+    roi_wh: Tensor,            # (B, 2) roi width/height in px
+    eps: float = 1e-4,
+    is_allo: bool = True,
+    z_type: str = "REL",
+) -> tuple[Tensor, Tensor]:
+    """Egocentric (R, t) from SITE predictions
+    (core/gdrn_modeling/models/pose_from_pred_centroid_z.py):
+      c = centroid * wh + roi_center;  z = z_rel * resize_ratio (REL)
+      t = ((cx - px) z / fx, (cy - py) z / fy, z);  R_ego = R(allo->ego|t) R
+    """
+    c = pred_centroid * roi_wh + roi_center
+    if z_type == "ABS":
+        z = pred_z[:, 0]
+    elif z_type == "REL":
+        z = pred_z[:, 0] * resize_ratio
+    else:
+        raise ValueError(f"unknown z_type: {z_type}")
+    fx, fy = roi_cam[:, 0, 0], roi_cam[:, 1, 1]
+    px, py = roi_cam[:, 0, 2], roi_cam[:, 1, 2]
+    trans = torch.stack([z * (c[:, 0] - px) / fx, z * (c[:, 1] - py) / fy, z],
+                        dim=-1)
+    rot = allo_to_ego_mat(trans, pred_rot_m, eps=eps) if is_allo else pred_rot_m
+    return rot, trans
 
 
 def pose_from_delta_init(

@@ -152,9 +152,12 @@ def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
     K (B,3,3)|(3,3); R (B,3,3); t (B,3). Arrays or tensors; they are moved
     to `device` (CUDA by default). impl: 'kernel' runs the fine stage through
     ops/raster_cuda.fine_raster (the CUDA kernel for CUDA tensors), 'plain'
-    through its plain PyTorch version on any device.
+    through its plain PyTorch version on any device. When gradients are
+    needed the fine stage runs as raster_cuda.FineRaster, whose backward is
+    kernel B2 (or its plain version): prob, depth and attr carry gradients
+    back to the vertices, the pose and the attributes.
     """
-    from .raster_cuda import fine_raster, fine_raster_plain
+    from .raster_cuda import FineRaster, fine_raster, fine_raster_plain
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl: {impl!r}")
     if zbuf_mode not in ("persp", "face"):
@@ -165,6 +168,9 @@ def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
         f32(verts), torch.as_tensor(faces, device=dev), f32(attrs), f32(K),
         f32(R), f32(t), height, width, tile_px, faces_per_tile,
         cull_backfaces)
+    args = (ftab, cand, height, width, tile_px, sigma_px, with_prob,
+            zbuf_mode == "persp")
+    if torch.is_grad_enabled() and ftab.requires_grad:
+        return RasterOut(*FineRaster.apply(*args, impl))
     fine = fine_raster if impl == "kernel" else fine_raster_plain
-    return fine(ftab, cand, height, width, tile_px, sigma_px, with_prob,
-                zbuf_mode == "persp")
+    return fine(*args)

@@ -14,6 +14,7 @@ import torch
 from scipy.spatial.transform import Rotation
 
 from self6dpp_tpu_torch.data.meshes import make_icosphere
+from self6dpp_tpu_torch.ops import lab_cuda as LC
 from self6dpp_tpu_torch.ops import raster_cuda as RC
 from self6dpp_tpu_torch.ops import rasterizer as TR
 
@@ -71,6 +72,108 @@ def test_fine_raster_rejects_bad_inputs(cuda_device):
         RC.fine_raster(ftab, cand.long(), 64, 64, 16, 1.0, False, True)
     with pytest.raises(ValueError, match="CUDA device"):
         RC.fine_raster(ftab, cand.cpu(), 64, 64, 16, 1.0, False, True)
+
+
+def cotangents(dev, height, width, n_attr, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = ((3, height, width), (3, height, width), (3, height, width, n_attr))
+    return [torch.randn(s, generator=g).to(dev) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_prob,persp,tile_px,n_attr", [
+    (True, True, 16, 3), (True, False, 16, 3), (False, True, 32, 3),
+    (True, True, 32, 2), (True, True, 8, 1)])
+def test_fine_raster_bwd_matches_plain(cuda_device, with_prob, persp, tile_px,
+                                       n_attr):
+    """Kernel B2 against fine_raster_bwd_plain on a ragged 190x200 image:
+    d ftab within 1e-4 of its largest magnitude (shared-memory adds sum in
+    another order)."""
+    ftab, cand = sphere_inputs(cuda_device, 190, 200, tile_px, n_attr)
+    dprob, ddepth, dattr = cotangents(cuda_device, 190, 200, n_attr)
+    call = (ftab, cand, dprob, ddepth, dattr, 190, 200, tile_px, 1.5,
+            with_prob, persp)
+    before = RC.fine_raster_bwd.launches
+    got = RC.fine_raster_bwd(*call)
+    torch.cuda.synchronize()
+    assert RC.fine_raster_bwd.launches == before + 1
+    ref = RC.fine_raster_bwd_plain(*call)
+    scale = ref.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
+    assert not got[..., 7].any()                       # `valid` gets nothing
+
+
+@pytest.mark.cuda
+def test_rasterize_batch_gradient_through_kernels(cuda_device):
+    """Autograd through FineRaster: B1 forward and B2 backward on CUDA
+    tensors give the pose and colour gradients of the plain versions."""
+    verts, faces = make_icosphere(radius=0.2, subdivisions=3)
+    colors = (verts / 0.4 + 0.5).astype(np.float32)
+    K = np.array([[300.0, 0, 64.0], [0, 300.0, 60.0], [0, 0, 1.0]], np.float32)
+    R = Rotation.random(2, random_state=5).as_matrix().astype(np.float32)
+    t = np.array([[0.01, -0.02, 1.0], [0.03, 0.0, 1.1]], np.float32)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        args = [torch.tensor(x, device=cuda_device, requires_grad=True)
+                for x in (t, R, colors)]
+        before = (RC.fine_raster.launches, RC.fine_raster_bwd.launches)
+        out = TR.rasterize_batch(verts, faces, args[2], K, args[1], args[0],
+                                 height=128, width=120, tile_px=32,
+                                 faces_per_tile=128, sigma_px=1.5,
+                                 impl=impl, device=cuda_device)
+        (out.prob.sum() * 1e-2 + (out.attr ** 2).sum()
+         + out.depth.sum()).backward()
+        torch.cuda.synchronize()
+        launched = (RC.fine_raster.launches - before[0],
+                    RC.fine_raster_bwd.launches - before[1])
+        assert launched == ((1, 1) if impl == "kernel" else (0, 0))
+        grads[impl] = [a.grad for a in args]
+    for name, a, b in zip(("t", "R", "colors"), grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item(), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,no_l,empty", [(2, 64, True, False),
+                                            (3, 37, False, False),
+                                            (2, 16, True, True)])
+def test_lab_value_grad_matches_plain(cuda_device, b, s, no_l, empty):
+    """Kernel B3 against lab_value_grad_plain: value rtol 1e-5, gradient
+    within 1e-6 of its largest magnitude (cbrtf against torch's pow); the
+    value is the same bitwise from run to run (no float atomics)."""
+    g = torch.Generator(device="cpu").manual_seed(b * 100 + s)
+    pred = torch.rand((b, s, s, 3), generator=g).to(cuda_device)
+    gt = torch.rand((b, s, s, 3), generator=g).to(cuda_device)
+    mask = (torch.rand((b, s, s), generator=g) > 0.4).float().to(cuda_device)
+    if empty:
+        mask.zero_()
+    before = LC.lab_value_grad.launches
+    val, grad = LC.lab_value_grad(pred, gt, mask, no_l)
+    val2, _ = LC.lab_value_grad(pred, gt, mask, no_l)
+    torch.cuda.synchronize()
+    assert LC.lab_value_grad.launches == before + 4   # two kernels per call
+    assert torch.equal(val, val2)
+    rv, rg = LC.lab_value_grad_plain(pred, gt, mask, no_l)
+    torch.testing.assert_close(val, rv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(grad, rg, rtol=1e-5,
+                               atol=1e-6 * rg.abs().max().item())
+    if empty:
+        assert val.item() == 0 and not grad.any()
+    else:
+        assert val.item() > 1
+
+
+@pytest.mark.cuda
+def test_lab_value_grad_rejects_bad_inputs(cuda_device):
+    x = torch.rand((2, 8, 8, 3), device=cuda_device)
+    m = torch.ones((2, 8, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        LC.lab_value_grad(x.double(), x.double(), m.double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        LC.lab_value_grad(x, x.cpu(), m)
+    with pytest.raises(ValueError, match="need pred"):
+        LC.lab_value_grad(x, x, m[:, :4])
 
 
 def test_build_names_nvcc_when_missing(monkeypatch):

@@ -62,20 +62,36 @@ def render_both(mesh, impl, height=32, width=32, **kw):
     return a, b
 
 
+def assert_field_equal(name, ref, got, atol=0.0, first=5):
+    """Raise naming the field, and for its first differing pixels the image,
+    the pixel (row, col) and the values on both sides."""
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert ref.shape == got.shape, (name, ref.shape, got.shape)
+    bad = np.abs(ref.astype(np.float64) - got) > atol
+    if bad.ndim == 4:
+        bad = bad.any(-1)
+    if not bad.any():
+        return
+    where = np.argwhere(bad)[:first]
+    lines = [f"{name}: {int(bad.sum())} pixels differ beyond {atol}"]
+    lines += [f"  image {i} pixel ({r}, {c}): jax {ref[i, r, c]} port "
+              f"{got[i, r, c]}" for i, r, c in where]
+    raise AssertionError("\n".join(lines))
+
+
 def assert_raster_equal(a, b, with_bary=True):
     mask_a = np.asarray(a.mask)
-    np.testing.assert_array_equal(mask_a, b.mask.numpy())
-    np.testing.assert_array_equal(np.asarray(a.face_id), b.face_id.numpy())
+    assert_field_equal("mask", mask_a, b.mask.numpy())
+    assert_field_equal("face_id", a.face_id, b.face_id.numpy())
     for name in ("prob", "depth", "attr"):
-        np.testing.assert_allclose(np.asarray(getattr(a, name)),
-                                   getattr(b, name).numpy(), atol=1e-5,
-                                   err_msg=name)
+        assert_field_equal(name, getattr(a, name), getattr(b, name).numpy(),
+                           atol=1e-5)
     if with_bary:
         # the XLA path leaves uncovered pixels' bary unmasked; the port
         # writes zeros there
         cov = mask_a[..., None] > 0.5
-        np.testing.assert_allclose(np.where(cov, np.asarray(a.bary), 0.0),
-                                   b.bary.numpy(), atol=1e-5)
+        assert_field_equal("bary", np.where(cov, np.asarray(a.bary), 0.0),
+                           b.bary.numpy(), atol=1e-5)
     assert mask_a.sum() > 0
 
 
