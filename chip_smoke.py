@@ -6,7 +6,9 @@
     480x640 frames);
   * the stage-II self-supervised pose step at stage2_pose_flagship (GDRN
     with resnest50d, 256² ROI, 64² output, 13 classes, 8 ROIs, 1280-face
-    icospheres, 32 px tiles with K = 128, bf16 compute, Ranger, EMA).
+    icospheres, 32 px tiles with K = 128, bf16 compute, the whole loss suite
+    with LPIPS, MS-SSIM and depth chamfer, Ranger, EMA), and the LAB opaque
+    probe on it.
 
     python3 chip_smoke.py
 
@@ -25,10 +27,16 @@ exits non-zero):
      stage-II step's own inputs, and time all three;
   6. run two float32 stage-II steps through the kernels and two through
      the plain versions: losses and parameters agree, the parameters moved
-     well past the tolerance, and a step without the render's losses ends
-     elsewhere;
+     well past the tolerance, and a step without the losses that read the
+     render ends elsewhere;
   7. time bf16 stage-II steps, with one launch each of B1, B2 and B3 per
-     step, and hold their first losses against the float32 step's.
+     step, and hold their first losses against the float32 step's; time
+     the partial step (LPIPS, MS-SSIM, chamfer at weight 0) beside it;
+  8. hold the probe kernels P1 and P2 bitwise against their plain versions
+     on the step's masked render and image and on a seeded input with ties,
+     NaN and -0.0, and time both;
+  9. run the LAB opaque probe (A, J, J2, A', taking turns step by step) on
+     the bf16 step, with one launch of P1 per J step and of P2 per J2 step.
 Prints a `record` line with every measurement, a `kernels` line, a `path`
 line and the card's name and power limit, then {"ok": true, "device": ...}
 as the last line. Exits non-zero without a CUDA device.
@@ -54,6 +62,9 @@ REQUESTS = 5                      # after one warm-up request
 LM_K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899],
                  [0, 0, 1]], np.float32)        # LINEMOD intrinsics
 FRAME_HW = (480, 640)
+# the plain fine-raster passes take 40-150 ms a call: one call per timing,
+# median of three after one warm-up call
+PLAIN_TIMING = {"reps": 1, "trials": 3}
 TOL_KERNEL = 1e-4                 # float outputs where mask/face_id agree
 TOL_MISMATCH = 1e-4               # share of pixels whose mask/face_id differ
 TOL_PATH = 1e-3                   # fp32 refined pose, kernel vs plain
@@ -95,10 +106,17 @@ OPS_WIN_BWD = 153
 OPS_SEG_BWD = 22
 OPS_LAB = 135
 
-# stage-II (phases 5-7)
+# stage-II (phases 5-9)
 S2_BATCH = 8                      # ROIs per step (bench.py::build_stage2)
+# the partial step: the whole suite without these
+S2_PARTIAL = ("perceptual_lw", "ms_ssim_lw", "depth_chamfer_lw")
+# the losses that read the render: the control of phase 6 zeroes them all
+S2_RENDER_LOSSES = ("mask_lw", "lab_lw") + S2_PARTIAL
+PROBE_STEPS = 10                  # timed rounds of the probe's four variants
+OPS_SIGN = 4                      # P1/P2 per element: difference, 2 tests, scale
 S2_SIGMA = 1.5                    # soft-silhouette sigma of the student render
 S2_TIMED_STEPS = 20               # bf16 steps timed after one warm-up step
+S2_PARTIAL_STEPS = 5              # the partial step's, for its median
 # kernel launches per step (B3's wrapper launches a per-block pass and the
 # reduction of its partials)
 S2_LAUNCHES = {"fine_raster_fwd": 1, "fine_raster_bwd": 1, "lab_value_grad": 2}
@@ -110,11 +128,14 @@ TOL_S2_LOSS = 1e-4                # fp32 step losses, kernel vs plain, relative
 # fp32 params after 2 steps, kernel vs plain: the second step's L1 terms
 # (teacher vs student, nearly equal) flip sign on rounding-level differences,
 # which moves single parameters by ~lr; the first reading on an H100 was
-# 1.7e-5 with the parameters moved by 7.8e-3 and the control 4.2e-3 away
+# 1.7e-5 with the parameters moved by 7.8e-3 and the control 4.2e-3 away,
+# and with the whole loss suite 7.7e-6, moved 7.4e-3, control 4.5e-3 away
 TOL_S2_PARAMS = 1e-4
 S2_MOVED = 20                     # the steps move the params > 20x the tolerance
 TOL_S2_BF16 = 2e-3                # bf16 vs fp32 losses of the first step:
-                                  # 13x the 1.55e-4 read on an H100
+                                  # 13x the 1.55e-4 read on an H100 for the
+                                  # partial suite, 4x the 4.96e-4 read for
+                                  # the whole one (LPIPS, MS-SSIM, chamfer)
 
 
 def require(ok, *what) -> None:
@@ -137,6 +158,36 @@ def cuda_ms(fn, reps=10, trials=5) -> float:
         a.record()
         for _ in range(reps):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps=10, trials=5) -> float:
+    """Device time of one fn() in ms without the host's launch gaps: `reps`
+    calls captured in one CUDA graph (after warm-up calls on a side
+    stream), the graph replayed between CUDA events, median of `trials`.
+    For calls whose wrapper costs the host about as long as the kernel
+    runs, where cuda_ms measures the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
@@ -253,7 +304,7 @@ def check_kernel(cfg, batch):
             masks[key] = ref.mask
             v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
             v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
-                                    reps=2)
+                                    **PLAIN_TIMING)
             variants[key] = v
             max_err = max(max_err, *v["max_abs_err"].values())
 
@@ -460,16 +511,16 @@ def stage2_cfg(dtype_name, lr=None, base=None):
         cfg.dist, compute_dtype=dtype_name))
 
 
-def stage2_inputs(cfg, device, batch_size):
-    """One float32 forward of the stage-II step: the face table and
-    candidates of the student's pose, the cotangents the losses send to
-    the render's prob, depth and attr (zero where no loss reads one), and
-    LAB's inputs (masked render, masked image, pseudo mask)."""
+def stage2_inputs(cfg, state, batch, lpips):
+    """One forward and backward of the stage-II step at `state` (which it
+    leaves as it was): the face table and candidates of the student's pose,
+    the cotangents the losses send to the render's prob, depth and attr
+    (zero where no loss reads one), and LAB's inputs (masked render, masked
+    image, pseudo mask)."""
     from self6dpp_tpu_torch.engine import self_engine as se
     from self6dpp_tpu_torch.engine.gdrn_engine import model_inputs
     from self6dpp_tpu_torch.ops import rasterizer as R
-    _, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
-    ld, ren, pseudo = se.forward_losses(cfg, state, batch)
+    ld, ren, pseudo = se.forward_losses(cfg, state, batch, lpips=lpips)
     outs = [ren["prob"], ren["depth"], ren["color"]]
     grads = torch.autograd.grad(sum(ld.values()), outs, allow_unused=True)
     cts = [torch.zeros_like(o) if g is None else g.contiguous()
@@ -529,6 +580,10 @@ def raster_counts(ftab, cand, mask, tile_px, height, width, cts=None):
         sil = uncovered & (tiles(dprob) > 0.5)
         out.update({
             "covered_pixels_with_depth_or_attr_cotangent": int(win.sum()),
+            "covered_pixels_with_attr_cotangent":
+                int((covered & (tiles(dattr.any(-1)) > 0.5)).sum()),
+            "covered_pixels_with_depth_cotangent":
+                int((covered & (tiles(ddepth) > 0.5)).sum()),
             "uncovered_pixels_with_prob_cotangent": int(sil.sum()),
             "_active": tiles(dprob | ddepth | dattr.any(-1)).sum(1),
             "_win": win.sum(1).float(), "_sil": sil.sum(1).float()})
@@ -562,15 +617,17 @@ def bound(bytes_moved, ops):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_stage2_kernels(cfg, device, batch_size):
+def check_stage2_kernels(cfg, inputs):
     """Phase 5: B1 with the soft silhouette, B2 and B3 against their plain
-    versions on one stage-II step's inputs, timed, with their bounds.
-    B2 is held twice: on the cotangents the loss suite sends (only prob's
-    is non-zero in this slice: LAB's gradient is injected into a tensor no
-    later loss reads) and on seeded random ones for prob, depth and attr."""
+    versions on one stage-II step's inputs (stage2_inputs), timed, with
+    their bounds. B2 is held twice: on the cotangents the whole loss suite
+    sends (prob's from the mask loss; attr's from LPIPS and MS-SSIM, which
+    read the masked render after LAB's gradient is injected into it;
+    depth's from the chamfer) and on seeded random ones."""
     from self6dpp_tpu_torch.ops import lab_cuda as LC
     from self6dpp_tpu_torch.ops import raster_cuda as RC
-    ftab, cand, cts, lab = stage2_inputs(cfg, device, batch_size)
+    ftab, cand, cts, lab = inputs
+    device = ftab.device
     s, tp = cfg.model.input_res, cfg.renderer.tile_px
     B, F, C = ftab.shape
     D = (C - RC._GEO) // 3
@@ -582,7 +639,8 @@ def check_stage2_kernels(cfg, device, batch_size):
     b1 = compare_raster(got, ref, "stage-II B1")
     n = raster_counts(ftab, cand, ref.mask, tp, s, s, cts)
     b1["ms"] = cuda_ms(lambda: RC.fine_raster(*fwd_call))
-    b1["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*fwd_call), reps=2)
+    b1["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*fwd_call),
+                             **PLAIN_TIMING)
     b1.update(bound(
         n["face_rows_read"] * C * 4 + cand.numel() * 4
         + B * s * s * (4 + D + 3) * 4, b1_ops(n)))
@@ -602,7 +660,8 @@ def check_stage2_kernels(cfg, device, batch_size):
         b2[name] = {"rel_err": err, "max_abs": scale}
     call = (ftab, cand, *cts, s, s, tp, S2_SIGMA, True, True)
     b2["ms"] = cuda_ms(lambda: RC.fine_raster_bwd(*call))
-    b2["plain_ms"] = cuda_ms(lambda: RC.fine_raster_bwd_plain(*call), reps=2)
+    b2["plain_ms"] = cuda_ms(lambda: RC.fine_raster_bwd_plain(*call),
+                             **PLAIN_TIMING)
     b2.update(bound(
         n["face_rows_read"] * C * 4 + cand.numel() * 4
         + n["occupied_tiles"] * P * (2 + D) * 4 + B * F * C * 4, b2_ops(n)))
@@ -627,6 +686,7 @@ def check_stage2_kernels(cfg, device, batch_size):
     require(b3["grad_err"] <= TOL_B3_GRAD, "B3 gradient", b3)
     b3["ms"] = cuda_ms(lambda: LC.lab_value_grad(*lab, True))
     b3["plain_ms"] = cuda_ms(lambda: LC.lab_value_grad_plain(*lab, True))
+    b3["graph_ms"] = graph_ms(lambda: LC.lab_value_grad(*lab, True))
     npix = lab[2].numel()
     b3.update(bound(npix * (3 + 3 + 1 + 3) * 4, npix * OPS_LAB))
 
@@ -642,13 +702,15 @@ def max_abs_diff(a, b):
     return max((a[k] - b[k]).abs().max().item() for k in a)
 
 
-def run_steps(cfg, device, batch_size, n, impl="kernel"):
-    """n stage-II steps from the seeded weights: (initial params, metrics
-    per step, final params)."""
+def run_steps(cfg, device, batch_size, n, impl="kernel", built=None):
+    """n stage-II steps from the seeded weights (`built`, build_stage2's
+    result for cfg, or a new one): (initial params, metrics per step, final
+    params)."""
     from self6dpp_tpu_torch.engine import self_engine as se
-    model, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
+    model, state, batch, lpips = built or se.build_stage2(
+        cfg, batch_size, device, seed=SEED)
     init = params_of(model)
-    step = se.make_self_train_step(cfg, model, impl=impl)
+    step = se.make_self_train_step(cfg, model, lpips, impl=impl)
     metrics = []
     for _ in range(n):
         state, m = step(state, batch)
@@ -668,23 +730,26 @@ def loss_err(a, b):
     return max(abs(a[k] - b[k]) / max(abs(b[k]), floor) for k in a)
 
 
-def check_stage2_fp32(cfg32, device, batch_size):
-    """Phase 6: two float32 steps through the kernels and two through the
-    plain versions, from the same weights and batch, with TF32 off and
+def check_stage2_fp32(cfg32, device, batch_size, built):
+    """Phase 6: two float32 steps through the kernels (on `built`, the
+    untouched build_stage2 result phase 5 read its inputs from) and two
+    through the plain versions, from the same weights and batch, with TF32
+    off and
     cuDNN deterministic: losses within TOL_S2_LOSS, parameters within
     TOL_S2_PARAMS. The check can fail: the parameters moved more than
-    S2_MOVED x TOL_S2_PARAMS, and a step with the mask and LAB weights at 0
-    (the only losses that read the render) ends more than TOL_S2_PARAMS
+    S2_MOVED x TOL_S2_PARAMS, and a step with every loss that reads the
+    render at weight 0 (S2_RENDER_LOSSES) ends more than TOL_S2_PARAMS
     away."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        init, mk, pk = run_steps(cfg32, device, batch_size, 2, "kernel")
+        init, mk, pk = run_steps(cfg32, device, batch_size, 2, "kernel",
+                                 built)
         _, mp, pp = run_steps(cfg32, device, batch_size, 2, "plain")
         ctrl = dataclasses.replace(cfg32, self_sup=dataclasses.replace(
-            cfg32.self_sup, mask_lw=0.0, lab_lw=0.0))
+            cfg32.self_sup, **{k: 0.0 for k in S2_RENDER_LOSSES}))
         _, mc, pc = run_steps(ctrl, device, batch_size, 2, "kernel")
     finally:
         torch.backends.cudnn.deterministic = det
@@ -710,28 +775,10 @@ def check_stage2_fp32(cfg32, device, batch_size):
     return mk[0], detail
 
 
-def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS):
-    """Phase 7: stage-II steps in the configured compute dtype. One
-    warm-up step, whose losses are held against the float32 step's (the
-    same weights and batch) within TOL_S2_BF16; then `steps` timed steps
-    (host clock around each, ending in a synchronize) with CUDA events at
-    the step's phase boundaries, the launch counts set to 0 just before
-    and read just after."""
+def timed_steps(step, state, batch, steps):
+    """`steps` steps (host clock around each, ending in a synchronize) with
+    CUDA events at the step's phase boundaries: (times, phases, metrics)."""
     from self6dpp_tpu_torch.engine import self_engine as se
-    from self6dpp_tpu_torch.ops import lab_cuda as LC
-    from self6dpp_tpu_torch.ops import raster_cuda as RC
-    model, state, batch = se.build_stage2(cfg, batch_size, device, seed=SEED)
-    step = se.make_self_train_step(cfg, model)
-    state, warm = step(state, batch)
-    torch.cuda.synchronize()
-    warm = {k: float(v) for k, v in warm.items()}
-    bf16_err = loss_err(warm, ref32)
-    require(bf16_err <= TOL_S2_BF16, "bf16 vs fp32 losses", warm, ref32)
-
-    torch.cuda.reset_peak_memory_stats()
-    RC.fine_raster.launches = 0
-    RC.fine_raster_bwd.launches = 0
-    LC.lab_value_grad.launches = 0
     times, phases, metrics = [], [], []
     for _ in range(steps):
         marks = []
@@ -744,6 +791,70 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS):
         phases.append({b[0]: a[1].elapsed_time(b[1])
                        for a, b in zip(marks, marks[1:])})
         metrics.append(m)
+    return times, phases, metrics
+
+
+def summary(times, phases):
+    phase_ms = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
+    return {"steps": len(times), "ms_per_step": float(np.median(times)),
+            "step_ms": times, "phase_ms_median": phase_ms,
+            "phase_ms_sum": float(sum(phase_ms.values()))}
+
+
+def loss_parts_ms(cfg, state, batch, lpips):
+    """Forward + backward time of each loss the whole suite adds to the
+    partial step, on this step's render (CUDA events, cuda_ms): LPIPS (float32),
+    MS-SSIM and the depth chamfer with its backprojection."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.losses import self_loss as sl
+    with torch.no_grad():
+        _, ren, pseudo = se.forward_losses(cfg, state, batch, lpips=lpips)
+    vis = pseudo["vis_mask"][..., None]
+    color = ren["color"].detach().requires_grad_(True)
+    depth = ren["depth"].detach().requires_grad_(True)
+    img_m = batch["roi_img"] * vis
+    only = {k: 0.0 for k in S2_RENDER_LOSSES + ("pseudo_pm_lw",
+                                                 "pseudo_trans_lw")}
+
+    def run(**w):
+        ss = dataclasses.replace(cfg.self_sup, **{**only, **w})
+        ld = sl.compute_self_loss_pose(ss, {"color": color, "depth": depth,
+                                            "prob": ren["prob"]}, {}, pseudo,
+                                       batch, lpips_fn=lpips)
+        sum(ld.values()).backward()
+    ss = cfg.self_sup
+    return {"lpips": cuda_ms(lambda: run(perceptual_lw=ss.perceptual_lw), reps=4),
+            "ms_ssim": cuda_ms(lambda: run(ms_ssim_lw=ss.ms_ssim_lw), reps=4),
+            "chamfer": cuda_ms(lambda: run(depth_chamfer_lw=ss.depth_chamfer_lw),
+                               reps=4)}
+
+
+def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
+                partial_steps=S2_PARTIAL_STEPS):
+    """Phase 7: stage-II steps in the configured compute dtype. One
+    warm-up step, whose losses are held against the float32 step's (the
+    same weights and batch) within TOL_S2_BF16; then `steps` timed steps
+    (timed_steps), the launch counts set to 0 just before and read just
+    after; the time of each loss the whole suite adds (loss_parts_ms); and
+    `partial_steps` steps of the partial step (S2_PARTIAL at weight 0) from
+    the same weights, timed the same way."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    model, state, batch, lpips = se.build_stage2(cfg, batch_size, device,
+                                                 seed=SEED)
+    step = se.make_self_train_step(cfg, model, lpips)
+    state, warm = step(state, batch)
+    torch.cuda.synchronize()
+    warm = {k: float(v) for k, v in warm.items()}
+    bf16_err = loss_err(warm, ref32)
+    require(bf16_err <= TOL_S2_BF16, "bf16 vs fp32 losses", warm, ref32)
+
+    torch.cuda.reset_peak_memory_stats()
+    RC.fine_raster.launches = 0
+    RC.fine_raster_bwd.launches = 0
+    LC.lab_value_grad.launches = 0
+    times, phases, metrics = timed_steps(step, state, batch, steps)
     launches = {"fine_raster_fwd": RC.fine_raster.launches,
                 "fine_raster_bwd": RC.fine_raster_bwd.launches,
                 "lab_value_grad": LC.lab_value_grad.launches}
@@ -757,18 +868,150 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS):
     require(all(torch.isfinite(p).all().item() for p in model.parameters()),
             "non-finite parameters")
     require(set(metrics[-1]) == set(ref32), "loss keys")
-    phase_ms = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
-    return launches, {
-        "steps": steps, "ms_per_step": float(np.median(times)),
-        "step_ms": times, "phase_ms_median": phase_ms,
-        "phase_ms_sum": float(sum(phase_ms.values())),
-        "peak_mem_gib": peak, "bf16_vs_fp32_loss_rel_err": bf16_err,
-        "first_losses_bf16": warm,
-        "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    require({"loss_percep_obj", "loss_ms_ssim", "loss_chamfer"}
+            <= set(metrics[-1]), "the whole suite", sorted(metrics[-1]))
+    parts = loss_parts_ms(cfg, state, batch, lpips)
+    whole = {**summary(times, phases), "peak_mem_gib": peak,
+             "bf16_vs_fp32_loss_rel_err": bf16_err, "first_losses_bf16": warm,
+             "last_losses": {k: float(v) for k, v in metrics[-1].items()},
+             "loss_parts_fwd_bwd_ms": parts}
+    del model, state, step
+
+    pcfg = dataclasses.replace(cfg, self_sup=dataclasses.replace(
+        cfg.self_sup, **{k: 0.0 for k in S2_PARTIAL}))
+    model, state, batch, _ = se.build_stage2(pcfg, batch_size, device,
+                                             seed=SEED)
+    step = se.make_self_train_step(pcfg, model)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, phases, metrics = timed_steps(step, state, batch, partial_steps)
+    partial = {**summary(times, phases),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    return launches, whole, partial
 
 
-def stage2_kernel_lines(k5, launches):
-    """The `kernels` entries of B1 (stage-II variant), B2 and B3."""
+def masked_pair_inputs(lab):
+    """P1's and P2's inputs from the step's masked render and image (B, S,
+    S, 3): the flattened (B, S²·3) pair and the channel planes (B, S²)."""
+    r, i = lab[0], lab[1]
+    b, s = r.shape[:2]
+    flat = (r.reshape(b, -1), i.reshape(b, -1))
+    planes = (tuple(r[..., k].reshape(b, s * s) for k in range(3)),
+              tuple(i[..., k].reshape(b, s * s) for k in range(3)))
+    return flat, planes
+
+
+def forced_pair(shape, device):
+    """A seeded (B, S, S, 3) pair with ties (r == i), NaN on either side,
+    -0.0 - +0.0 and infinities among uniform values."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    r = torch.rand(shape, generator=g)
+    i = torch.rand(shape, generator=g)
+    n = r.numel() // 10
+    k = torch.randperm(r.numel(), generator=g)[: 5 * n].view(5, n)
+    rf, i_f = r.view(-1), i.view(-1)
+    rf[k[0]] = i_f[k[0]]
+    rf[k[1]] = float("nan")
+    i_f[k[2]] = float("nan")
+    rf[k[3]], i_f[k[3]] = -0.0, 0.0
+    rf[k[4]] = float("inf")
+    return r.to(device), i.to(device)
+
+
+def same_bits(a, b):
+    """Bitwise equal where b is a number, NaN exactly where b is NaN
+    (torch.equal alone would call NaN unequal to itself)."""
+    nan = b.isnan()
+    return bool(torch.equal(a.isnan(), nan) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def max_abs_off_nan(a, b):
+    """Largest |a - b| where b is a number (0 where b is NaN throughout)."""
+    keep = ~b.isnan()
+    return float((a - b).abs()[keep].max()) if bool(keep.any()) else 0.0
+
+
+def check_sign_kernels(lab):
+    """Phase 8: P1 and P2 against their plain versions, bitwise, on the
+    whole step's masked render and image and on forced_pair at the same
+    shape; timed on the former (cuda_ms, and graph_ms: the wrapper's host
+    work takes about as long as the kernel), with their bounds (two inputs
+    read, one output written; OPS_SIGN per element)."""
+    from self6dpp_tpu_torch.ops import sign_cuda as SC
+    out = {}
+    forced = forced_pair(tuple(lab[0].shape), lab[0].device)
+    for name, pair in (("step", lab[:2]), ("forced", forced)):
+        (fr, fi), (rp, ip) = masked_pair_inputs(pair)
+        g1 = SC.sign_g(fr, fi)
+        g2 = SC.sign_g_split(rp, ip)
+        torch.cuda.synchronize()
+        p1 = SC.sign_g_plain(fr, fi)
+        p2 = SC.sign_g_split_plain(rp, ip)
+        v = {"P1_max_abs_err": max_abs_off_nan(g1, p1),
+             "P2_max_abs_err": max(max_abs_off_nan(a, b)
+                                   for a, b in zip(g2, p2)),
+             "P1_same_bits": same_bits(g1, p1),
+             "P2_same_bits": all(same_bits(a, b) for a, b in zip(g2, p2)),
+             "P2_equals_P1": same_bits(
+                 torch.stack([x.view(pair[0].shape[:3]) for x in g2], -1),
+                 g1.view(pair[0].shape)),
+             "nonzero": int((g1 != 0).sum()), "nan": int(g1.isnan().sum()),
+             "negative_zero": int((g1.signbit() & (g1 == 0)).sum())}
+        require(v["P1_same_bits"] and v["P2_same_bits"] and v["P2_equals_P1"],
+                "P1/P2 vs plain", name, v)
+        require(v["nonzero"] > 0, "P1: all zero", name)
+        if name == "forced":
+            require(v["nan"] > 0 and v["negative_zero"] > 0,
+                    "forced input lacks NaN or -0.0", v)
+        out[name] = v
+    (fr, fi), (rp, ip) = masked_pair_inputs(lab[:2])
+    n = fr.numel()
+    lim = bound(3 * n * 4, n * OPS_SIGN)
+    for key, fn, plain, args in (
+            ("P1", SC.sign_g, SC.sign_g_plain, (fr, fi)),
+            ("P2", SC.sign_g_split, SC.sign_g_split_plain, (rp, ip))):
+        out[key] = {"ms": cuda_ms(lambda: fn(*args)),
+                    "plain_ms": cuda_ms(lambda: plain(*args)),
+                    "graph_ms": graph_ms(lambda: fn(*args)),
+                    "plain_graph_ms": graph_ms(lambda: plain(*args)), **lim}
+    for key in ("P1", "P2"):
+        out[key]["max_abs_err"] = max(out[k][f"{key}_max_abs_err"]
+                                      for k in ("step", "forced"))
+    out["elements"] = n
+    return out
+
+
+def run_lab_probe(steps=PROBE_STEPS):
+    """Phase 9: the LAB opaque probe's variants A, J, J2, A' on the bf16
+    flagship step (probes/lab_opaque_probe.py::run_probe: the variants take
+    turns, WARMUP rounds untimed, then `steps` timed), the launch counts of
+    P1 and P2 set to 0 just before and read just after: one P1 launch per J
+    step and one P2 launch per J2 step (warm-up rounds included), none in A
+    or A'."""
+    from self6dpp_tpu_torch.ops import sign_cuda as SC
+    from self6dpp_tpu_torch.probes.lab_opaque_probe import WARMUP, run_probe
+    SC.sign_g.launches = 0
+    SC.sign_g_split.launches = 0
+    res = run_probe(steps)
+    n = steps + WARMUP
+    launches = {"sign_g": SC.sign_g.launches,
+                "sign_g_split": SC.sign_g_split.launches}
+    per = {k: (v["sign_g_launches"], v["sign_g_split_launches"])
+           for k, v in res.items()}
+    require(per == {"A": (0, 0), "J": (n, 0), "J2": (0, n), "A'": (0, 0)},
+            "probe launches", per)
+    require(launches == {"sign_g": n, "sign_g_split": n}, "probe launches",
+            launches)
+    for k, v in res.items():
+        require(np.isfinite(v["total_loss"]), "probe: non-finite loss", k)
+    return launches, res
+
+
+def stage2_kernel_lines(k5, launches, k8, probe_launches):
+    """The `kernels` entries of B1 (stage-II variant), B2, B3, P1 and P2."""
     rows = [("fine_raster_fwd[stage2]", "fine_raster_fwd.cu",
              "self6dpp_tpu/ops/raster_pallas.py:420", "B1",
              "fine_raster_fwd",
@@ -789,6 +1032,16 @@ def stage2_kernel_lines(k5, launches):
             "launches": launches[count], "max_abs_err": err, "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None})
+    for key, name, call in (("P1", "sign_g", 68), ("P2", "sign_g_split", 110)):
+        d = k8[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "self6dpp_tpu_torch/csrc/sign_g.cu",
+            "replaces": f"tools/probes/lab_opaque_probe.py:{call}",
+            "launches": probe_launches[name],
+            "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None})
     return out
 
 
@@ -805,6 +1058,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from self6dpp_tpu_torch.config import lm_flownet
+    from self6dpp_tpu_torch.engine import self_engine as se
     from self6dpp_tpu_torch.kernels import build
 
     device = torch.device("cuda")
@@ -845,18 +1099,36 @@ def main() -> int:
     t0 = time.perf_counter()
     s2 = stage2_cfg("bfloat16")
     cfg32 = stage2_cfg("float32", lr=S2_LR, base=s2)
-    k5 = check_stage2_kernels(cfg32, device, S2_BATCH)
+    s2_built = se.build_stage2(cfg32, S2_BATCH, device, seed=SEED)
+    s2_inputs = stage2_inputs(cfg32, *s2_built[1:])
+    torch.cuda.synchronize()
+    clock["stage2_phase5_build_and_inputs_s"] = time.perf_counter() - t0
+    k5 = check_stage2_kernels(cfg32, s2_inputs)
     print("stage-II kernels vs plain: " + json.dumps(
         {k: v for k, v in k5.items()}), flush=True)
+    lab = s2_inputs[3]          # the masked render and image, for phase 8
+    del s2_inputs
     clock["stage2_phase5_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    s2_ref32, s2_fp32 = check_stage2_fp32(cfg32, device, S2_BATCH)
+    s2_ref32, s2_fp32 = check_stage2_fp32(cfg32, device, S2_BATCH, s2_built)
+    del s2_built
     print(f"stage-II fp32 steps: {json.dumps(s2_fp32)}", flush=True)
     clock["stage2_phase6_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    s2_launches, s2_steps = time_stage2(s2, device, S2_BATCH, s2_ref32)
+    s2_launches, s2_steps, s2_partial = time_stage2(s2, device, S2_BATCH,
+                                                    s2_ref32)
     print(f"stage-II bf16 steps: {json.dumps(s2_steps)}", flush=True)
+    print(f"stage-II bf16 partial steps (no LPIPS, MS-SSIM, chamfer): "
+          f"{json.dumps(s2_partial)}", flush=True)
     clock["stage2_phase7_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k8 = check_sign_kernels(lab)
+    print(f"probe kernels vs plain: {json.dumps(k8)}", flush=True)
+    clock["probe_kernels_phase8_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe_launches, probe = run_lab_probe()
+    print(f"LAB opaque probe: {json.dumps(probe)}", flush=True)
+    clock["probe_phase9_s"] = time.perf_counter() - t0
     stage2_path = {
         "config": s2.exp_name, "batch": S2_BATCH,
         "input_res": s2.model.input_res, "output_res": s2.model.output_res,
@@ -869,19 +1141,24 @@ def main() -> int:
         "phase_ms_median": s2_steps["phase_ms_median"],
         "launches_per_step": {k: v / s2_steps["steps"]
                               for k, v in s2_launches.items()},
-        "peak_mem_gib": s2_steps["peak_mem_gib"]}
+        "peak_mem_gib": s2_steps["peak_mem_gib"],
+        "partial_step_ms": s2_partial["ms_per_step"]}
+    probe_path = {k: v["ms_per_step"] for k, v in probe.items()}
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
               "stage2_kernels": k5, "stage2_fp32": s2_fp32,
-              "stage2_steps": s2_steps, "clock": clock,
+              "stage2_steps": s2_steps, "stage2_partial_steps": s2_partial,
+              "probe_kernels": k8, "lab_opaque_probe": probe, "clock": clock,
               "build_s": build_s, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print("record " + json.dumps(record))
-    kernels = [kernel] + stage2_kernel_lines(k5, s2_launches)
+    kernels = [kernel] + stage2_kernel_lines(k5, s2_launches, k8,
+                                             probe_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
+                               "lab_opaque_probe_ms_per_step": probe_path,
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

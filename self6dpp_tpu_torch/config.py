@@ -190,6 +190,8 @@ class SelfSupConfig:
     # port's B3 kernel; "direct" is autograd of ops/color.py::lab_loss
     lab_impl: str = "pallas"
     depth_chamfer_lw: float = 0.0
+    chamfer_dist_thr: float = 0.05      # metres; farther pairs leave the mean
+    chamfer_center_lw: float = 0.0
     vf_lw: float = 0.0
     norm_lw: float = 0.0
     pseudo_pm_lw: float = 10.0
@@ -229,14 +231,15 @@ def lm_flownet() -> Config:
 
 
 def stage2_pose_flagship() -> Config:
-    """The stage-II pose-mode step at the flagship width: GDRN with a
+    """The stage-II pose-mode step at the flagship width, as
+    bench.py::build_stage2(8, dense=False) measures it: GDRN with a
     resnest50d backbone, 256² ROI, 64² output, 13 classes, bf16 compute;
     renderer tiles of 32 px with K = 128 (the 1280-face icosphere budget);
     Ranger at base_lr 1e-4, grad clip 35, EMA 0.999 over a 2000-iteration
-    ramp, 24 images per batch (no accumulation). The loss suite keeps the
-    rendered-mask RW_BCE with edge weights, LAB (kernel form), xyz/region
-    init-pred and pseudo-pose PM + trans; LPIPS, MS-SSIM and depth chamfer
-    are off (weight 0)."""
+    ramp, 24 images per batch (no accumulation). The whole pose-mode loss
+    suite: the rendered-mask RW_BCE with edge weights (1), LAB in its
+    kernel form (0.2), LPIPS (0.15), MS-SSIM (1), the depth chamfer (1),
+    xyz/region init-pred and pseudo-pose PM (10) + trans (1)."""
     return Config(
         exp_name="stage2_pose_flagship",
         model=PoseNetConfig(num_classes=13, input_res=256, output_res=64),
@@ -244,16 +247,18 @@ def stage2_pose_flagship() -> Config:
                             reference_bs=24),
         renderer=RendererConfig(tile_px=32, faces_per_tile=128),
         self_sup=SelfSupConfig(
-            mask_lw=1.0, ms_ssim_lw=0.0, lab_lw=0.2,
-            lab_impl="pallas", lab_no_l=True, depth_chamfer_lw=0.0,
-            perceptual_lw=0.0, pseudo_pm_lw=10.0, pseudo_trans_lw=1.0),
+            mask_lw=1.0, ms_ssim_lw=1.0, lab_lw=0.2,
+            lab_impl="pallas", lab_no_l=True, depth_chamfer_lw=1.0,
+            perceptual_lw=0.15, pseudo_pm_lw=10.0, pseudo_trans_lw=1.0),
     )
 
 
 def stage2_pose_tiny() -> Config:
-    """stage2_pose_flagship cut to test size: micro backbone, 64² ROI, 16²
-    output, 2 classes, head width 16 with 4 GN groups, 4 regions, 16 px
-    tiles; fp32 compute, no LR warm-up and a visible base_lr."""
+    """stage2_pose_flagship cut to test size, with the same loss suite:
+    micro backbone, 64² ROI (so MS-SSIM keeps 3 of its 5 levels and the
+    chamfer takes every pixel), 16² output, 2 classes, head width 16 with 4
+    GN groups, 4 regions, 16 px tiles; fp32 compute, no LR warm-up and a
+    visible base_lr."""
     f = stage2_pose_flagship()
     return dataclasses.replace(
         f, exp_name="stage2_pose_tiny",

@@ -1,5 +1,5 @@
 """JAX-package variables (nested dicts of numpy arrays) -> the port's
-state_dicts, for DeepIM and GDRN.
+state_dicts, for DeepIM, GDRN and LPIPS.
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
 (flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
@@ -244,3 +244,61 @@ def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor
     pn = model.pnp_net
     flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
     return _convert(model, flat, gdrn_key_map(model), flat_hwc)
+
+
+# reference LPIPS (PerceptualSimilarity, alexnet) module names -> the port's
+# LPIPS: the map of tools/convert_torch_weights.py::LPIPS_ALEX_MAP composed
+# with the JAX package's load_lpips_params names
+LPIPS_REFERENCE_MAP = {
+    "net.slice1.0": "alex.conv1", "net.slice2.3": "alex.conv2",
+    "net.slice3.6": "alex.conv3", "net.slice4.8": "alex.conv4",
+    "net.slice5.10": "alex.conv5",
+    "lin0.model.1": "lin0", "lin1.model.1": "lin1", "lin2.model.1": "lin2",
+    "lin3.model.1": "lin3", "lin4.model.1": "lin4",
+}
+
+
+def _lpips_check(out: dict[str, torch.Tensor], model) -> dict[str, torch.Tensor]:
+    want = model.state_dict()
+    if set(out) != set(want):
+        raise KeyError(f"LPIPS keys differ: missing {sorted(set(want) - set(out))}"
+                       f", extra {sorted(set(out) - set(want))}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(want[k].shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                             f"{tuple(want[k].shape)}")
+    return out
+
+
+def lpips_flax_to_state_dict(params: Mapping, model) -> dict[str, torch.Tensor]:
+    """params: the JAX LPIPS's `params` ({'alex': {'conv<i>': {'kernel',
+    'bias'}}, 'lin<i>': (C,)}). Returns a state_dict that the port's LPIPS
+    takes with strict=True."""
+    flat = _flatten(params)
+    out = {}
+    for k, a in flat.items():
+        if k.startswith("alex."):
+            mod, leaf = k.rsplit(".", 1)
+            tk = f"{mod}.{'weight' if leaf == 'kernel' else 'bias'}"
+            a = _to_torch_layout(a, "conv", None)
+        else:
+            tk = k
+        out[tk] = torch.from_numpy(np.array(a, dtype=np.float32))
+    return _lpips_check(out, model)
+
+
+def lpips_reference_to_state_dict(src: Mapping, model) -> dict[str, torch.Tensor]:
+    """src: a reference PerceptualSimilarity alexnet state dict (names
+    'net.slice1.0.weight', 'lin0.model.1.weight' of shape (1, C, 1, 1), ...;
+    tensors or arrays). Returns a state_dict that the port's LPIPS takes
+    with strict=True."""
+    out = {}
+    for rk, tk in LPIPS_REFERENCE_MAP.items():
+        w = torch.as_tensor(np.asarray(src[f"{rk}.weight"]), dtype=torch.float32)
+        if tk.startswith("lin"):
+            out[tk] = w.reshape(-1)
+        else:
+            out[f"{tk}.weight"] = w
+            out[f"{tk}.bias"] = torch.as_tensor(np.asarray(src[f"{rk}.bias"]),
+                                                dtype=torch.float32)
+    return _lpips_check(out, model)

@@ -6,19 +6,22 @@ bench.py::build_stage2, the configuration the step is measured at).
 One step: student forward (BN frozen) and EMA-teacher forward (no grad),
 in the configured compute dtype; the teacher's pseudo mask and pose;
 differentiable render of the student pose in the ROI frame (fine stage B1
-forward, B2 backward); the pose-mode loss suite (LAB through B3); backward;
-Ranger; EMA update. The JAX package jits it into one XLA program; here it
-runs eagerly.
+forward, B2 backward); the pose-mode loss suite (LAB through B3 or a given
+lab_linear, LPIPS in float32, MS-SSIM, depth chamfer); backward; Ranger;
+EMA update. The JAX package jits it into one XLA program; here it runs
+eagerly.
 
 Not ported here: the in-step DeepIM refiner, RepjRefiner, textured meshes
 and the vf/norm pseudo labels (each raises when the configuration or the
-batch asks for it); and the JAX step's ema_update_every, split_lab and
-emit_render arguments, which this step does not take (the teacher follows
-the student every step).
+batch asks for it); the JAX step's ema_update_every and emit_render
+arguments and its extra_grads input (the teacher follows the student every
+step); and the side programs that feed split_lab (make_lab_grad_fn,
+make_lab_fwd_fn, make_lab_pixel_fn).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Callable
 
 import numpy as np
@@ -32,6 +35,7 @@ from ..data.synthetic import make_gdrn_batch
 from ..losses.mask_losses import get_mask_prob
 from ..losses.self_loss import check_supported, compute_self_loss_pose
 from ..models.gdrn import GDRN
+from ..models.lpips import LPIPS, build_lpips
 from ..ops.rasterizer import rasterize_batch
 from ..ops.zoom import zoom_K
 from .deepim_engine import to_device
@@ -101,13 +105,17 @@ def event_marker(marks: list) -> Callable[[str], None]:
 
 
 def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
-                   impl: str = "kernel", mark=_no_mark):
+                   impl: str = "kernel", mark=_no_mark,
+                   lpips: LPIPS | None = None, split_lab: bool = False,
+                   lab_linear: tuple | None = None):
     """The forward half of the pose-mode step: student forward (with
     gradients), teacher forward (without), the teacher's pseudo mask and
     pose, the differentiable render of the student pose and the loss
-    suite. Returns (losses, render, pseudo labels). mark(name) is called
-    after each phase (see event_marker)."""
+    suite (LPIPS when given; with split_lab, LAB's weight at 0 and its term
+    from lab_linear alone). Returns (losses, render, pseudo labels).
+    mark(name) is called after each phase (see event_marker)."""
     ss = cfg.self_sup
+    ss_loss = dataclasses.replace(ss, lab_lw=0.0) if split_lab else ss
     dtype = _DTYPES[cfg.dist.compute_dtype]
     s, o = cfg.model.input_res, cfg.model.output_res
     dev = next(state.model.parameters()).device
@@ -138,18 +146,26 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     ren = render_student_pose(cfg, batch, out["rot"], out["trans"],
                               impl=impl)
     mark("render_fwd")
-    ld = compute_self_loss_pose(ss, ren, out, pseudo, batch, impl=impl)
+    ld = compute_self_loss_pose(ss_loss, ren, out, pseudo, batch,
+                                lpips_fn=lpips, lab_linear=lab_linear,
+                                impl=impl)
     mark("losses")
     return ld, ren, pseudo
 
 
-def make_self_train_step(cfg: Config, model: GDRN, impl: str = "kernel"):
-    """Returns train_step(state, batch, mark=None) -> (state, metrics): one
-    pose-mode step, updating the state in place. impl 'kernel' runs B1-B3
-    on CUDA tensors (their plain versions on CPU tensors); 'plain' runs the
-    plain versions on any device (the control runs of chip_smoke.py).
-    metrics holds every loss term and total_loss, as 0-d tensors. mark, if
-    given, is called after each phase of the step (see event_marker)."""
+def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
+                         split_lab: bool = False, impl: str = "kernel"):
+    """Returns train_step(state, batch, mark=None, lab_linear=None) ->
+    (state, metrics): one pose-mode step, updating the state in place.
+    lpips: a frozen LPIPS (build_lpips), or None to leave the perceptual
+    term out, as the JAX step does without lpips_params. split_lab: LAB's
+    weight at 0 in the loss; its value and image gradient come, if at all,
+    as lab_linear = (value, g (B,S,S,3)), g added to the masked render's
+    cotangent. impl 'kernel' runs B1-B3 on CUDA tensors (their plain
+    versions on CPU tensors); 'plain' runs the plain versions on any device
+    (the control runs of chip_smoke.py). metrics holds every loss term and
+    total_loss, as 0-d tensors. mark, if given, is called after each phase
+    of the step (see event_marker)."""
     ss = cfg.self_sup
     if ss.refine_with_deepim or ss.repj_refine:
         raise ValueError("refine_with_deepim and repj_refine belong to a "
@@ -162,9 +178,11 @@ def make_self_train_step(cfg: Config, model: GDRN, impl: str = "kernel"):
     if s % o:
         raise ValueError(f"input_res {s} is not a multiple of output_res {o}")
 
-    def train_step(state: TrainState, batch: dict[str, Tensor], mark=None):
+    def train_step(state: TrainState, batch: dict[str, Tensor], mark=None,
+                   lab_linear=None):
         mark = mark or _no_mark
-        ld, _, _ = forward_losses(cfg, state, batch, impl, mark)
+        ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
+                                  split_lab, lab_linear)
         total = sum(ld[k] for k in sorted(ld))     # jax.tree.leaves order
         state.opt.zero_grad(set_to_none=True)
         total.backward()
@@ -221,17 +239,19 @@ def aim_heads_(model: GDRN, batch: dict[str, Tensor]) -> None:
 
 
 def build_stage2(cfg: Config | None = None, batch_size: int = 8, device=None,
-                 seed: int = 0) -> tuple[GDRN, TrainState, dict[str, Tensor]]:
+                 seed: int = 0
+                 ) -> tuple[GDRN, TrainState, dict[str, Tensor], LPIPS]:
     """The stage-II configuration the step is measured at (mirrors
-    bench.py::build_stage2 with dense=False): (model, state, batch) on
-    `device` (CUDA by default), weights drawn from `seed` as the JAX
+    bench.py::build_stage2 with dense=False): (model, state, batch, lpips)
+    on `device` (CUDA by default), weights drawn from `seed` as the JAX
     package initialises them, then aimed by aim_heads_ before the teacher
     and the optimizer copy them, so that the measured step renders the
-    mesh (bench.py's render is empty at its initialisation). cfg defaults
-    to stage2_pose_flagship()."""
+    mesh (bench.py's render is empty at its initialisation); the frozen
+    LPIPS drawn from seed + 1 (bench.py's PRNGKey(1) beside the model's 0).
+    cfg defaults to stage2_pose_flagship()."""
     cfg = cfg if cfg is not None else stage2_pose_flagship()
     dev = resolve_device(device)
     model = build_gdrn(cfg, device=dev, seed=seed)
     batch = stage2_batch(cfg, batch_size, dev, seed=seed)
     aim_heads_(model, batch)
-    return model, init_state(cfg, model), batch
+    return model, init_state(cfg, model), batch, build_lpips(dev, seed + 1)

@@ -3,10 +3,12 @@ self6dpp_tpu/losses/self_loss.py: inject_grad, mask_dilate/mask_erode,
 compute_mask_edge_weights, compute_self_loss_pose).
 
 Ported terms: the rendered-mask loss against the teacher's pseudo mask
-(RW_BCE with edge weights, dice or L1), LAB (kernel B3, whose image
-gradient enters through InjectGrad, or autograd of lab_loss), xyz and
-region init-pred (student vs teacher), pseudo-pose PM and trans. LPIPS,
-MS-SSIM, depth chamfer and the vf/norm terms belong to a later slice:
+(RW_BCE with edge weights, dice or L1); LAB, as a given (value, gradient)
+pair (lab_linear), through kernel B3 or by autograd of lab_loss, the
+gradient of the first two entering through InjectGrad; LPIPS; MS-SSIM;
+the chamfer between the backprojected rendered and observed depths; xyz
+and region init-pred (student vs teacher); pseudo-pose PM and trans. The
+vf/norm terms need the GDRN vf/norm heads, which the port does not have:
 compute_self_loss_pose raises when their weights are above 0.
 """
 
@@ -19,12 +21,18 @@ import torch.nn.functional as Fnn
 from torch import Tensor
 
 from ..config import SelfSupConfig
+from ..ops.chamfer import chamfer_loss
 from ..ops.color import lab_loss
+from ..ops.geometry import backproject_depth
 from ..ops.lab_cuda import lab_value_grad, lab_value_grad_plain
+from ..ops.ssim import ms_ssim
 from .mask_losses import weighted_ex_loss_probs
 from .pm_loss import pm_loss
 
-_LATER = ("perceptual_lw", "ms_ssim_lw", "depth_chamfer_lw", "vf_lw", "norm_lw")
+_LATER = ("vf_lw", "norm_lw")
+# the chamfer's sampling stride is int((S²/_MAX_DEPTH_POINTS)^0.5): 5 at
+# S = 256, 52² = 2704 points per image (the JAX package's max_depth_points)
+_MAX_DEPTH_POINTS = 2048
 
 
 class InjectGrad(torch.autograd.Function):
@@ -67,8 +75,8 @@ def check_supported(cfg: SelfSupConfig) -> None:
     """Raise for what the pose-mode loss suite does not port yet."""
     on = [n for n in _LATER if getattr(cfg, n) > 0]
     if on:
-        raise ValueError(f"{', '.join(on)} > 0: LPIPS, MS-SSIM, depth chamfer "
-                         "and vf/norm belong to the next slice of the port")
+        raise ValueError(f"{', '.join(on)} > 0: the vf/norm terms need the "
+                         "GDRN vf/norm heads, a later slice of the port")
     if cfg.lab_lw > 0 and cfg.lab_impl not in ("pallas", "direct"):
         raise ValueError(f"lab_impl {cfg.lab_impl!r}: the port has 'pallas' "
                          "(its CUDA kernel) and 'direct'")
@@ -76,14 +84,19 @@ def check_supported(cfg: SelfSupConfig) -> None:
 
 def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
                            pred: dict[str, Tensor], pseudo: dict[str, Tensor],
-                           batch: dict[str, Tensor],
+                           batch: dict[str, Tensor], lpips_fn=None,
+                           lab_linear: tuple | None = None,
                            impl: str = "kernel") -> dict[str, Tensor]:
     """ren: render at the student pose in the ROI frame (color (B,S,S,3),
     prob, mask, depth); pred: student outputs (rot, trans, coor (B,o,o,3),
     region_logits); pseudo: teacher labels (vis_mask (B,S,S), vis_mask_lr
     (B,o,o), rot, trans, coor, region probabilities); batch: roi_img,
-    gt_points, roi_extent, sym_rots, sym_valid. impl 'plain' runs LAB's
-    plain version on any device."""
+    roi_depth, roi_zoom_K, gt_points, roi_extent, sym_rots, sym_valid.
+    lpips_fn(a, b) -> (B,) distances, or None to leave LPIPS out (as the
+    JAX package does). lab_linear = (value, g): the LAB term is `value` and
+    g (B,S,S,3) is added to the masked render's cotangent, instead of B3.
+    The chamfer takes every stride-th pixel (_MAX_DEPTH_POINTS). impl
+    'plain' runs LAB's plain version on any device."""
     check_supported(cfg)
     loss: dict[str, Tensor] = {}
     pseudo_vis = pseudo["vis_mask"]
@@ -101,21 +114,45 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
             lm = (ren["prob"] - pseudo_vis).abs().mean()
         loss["loss_mask_self"] = cfg.mask_lw * lm
 
+    # one masked pair for every image loss; LAB's gradient is injected into
+    # ren_m before LPIPS and MS-SSIM read it, so the render's cotangent
+    # carries it
     vis_m = pseudo_vis[..., None]
     ren_m = ren["color"] * vis_m
     img_m = batch["roi_img"] * vis_m
-    if cfg.lab_lw > 0 and cfg.lab_impl == "pallas":
+    if lab_linear is not None:
+        lab_val, lab_g = lab_linear
+        ren_m = InjectGrad.apply(ren_m, lab_g)
+        loss["loss_color_ab_obj"] = torch.as_tensor(
+            lab_val, dtype=ren_m.dtype, device=ren_m.device)
+    elif cfg.lab_lw > 0 and cfg.lab_impl == "pallas":
         fn = lab_value_grad if impl == "kernel" else lab_value_grad_plain
         lab_val, lab_g = fn(ren_m.detach(), img_m.detach(), pseudo_vis.detach(),
                             cfg.lab_no_l)
-        # every later consumer of ren_m reads the injected tensor; in this
-        # slice none does (LPIPS, MS-SSIM are off), so, as in the JAX
-        # package, the LAB term reports its value and adds no gradient
         ren_m = InjectGrad.apply(ren_m, cfg.lab_lw * lab_g)
         loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
-    elif cfg.lab_lw > 0:
+
+    if cfg.perceptual_lw > 0 and lpips_fn is not None:
+        loss["loss_percep_obj"] = cfg.perceptual_lw * lpips_fn(ren_m, img_m).mean()
+    if cfg.ms_ssim_lw > 0:
+        loss["loss_ms_ssim"] = cfg.ms_ssim_lw * (1.0 - ms_ssim(img_m, ren_m))
+    if cfg.lab_lw > 0 and cfg.lab_impl != "pallas":
         loss["loss_color_ab_obj"] = cfg.lab_lw * lab_loss(
             ren_m, img_m, mask=pseudo_vis, no_l=cfg.lab_no_l)
+
+    if cfg.depth_chamfer_lw > 0 and "roi_depth" in batch:
+        Kz = batch["roi_zoom_K"]
+        ren_xyz = backproject_depth(ren["depth"], Kz)          # (B,S,S,3)
+        obs_xyz = backproject_depth(batch["roi_depth"] * pseudo_vis, Kz)
+        B, S = ren_xyz.shape[:2]
+        stride = max(1, int((S * S / _MAX_DEPTH_POINTS) ** 0.5))
+        rp = ren_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
+        op = obs_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
+        rw = (rp[..., 2] > 1e-3).to(rp.dtype)
+        ow = (op[..., 2] > 1e-3).to(op.dtype)
+        loss["loss_chamfer"] = cfg.depth_chamfer_lw * chamfer_loss(
+            rp, op, rw, ow, dist_thr=cfg.chamfer_dist_thr,
+            center_lw=cfg.chamfer_center_lw)
 
     if "coor" in pred and "coor" in pseudo:
         m = pseudo["vis_mask_lr"][..., None]

@@ -1,4 +1,5 @@
-"""Batched rotation ops (port of self6dpp_tpu/ops/geometry.py).
+"""Batched rotation ops and depth backprojection (port of
+self6dpp_tpu/ops/geometry.py).
 
 Quaternions are (w, x, y, z); every function is batched over leading axes.
 """
@@ -75,3 +76,19 @@ def transform_pts(pts: Tensor, R: Tensor, t: Tensor | None = None) -> Tensor:
     if t is not None:
         out = out + t[..., None, :]
     return out
+
+
+def backproject_depth(depth: Tensor, K: Tensor) -> Tensor:
+    """depth (..., H, W), K (..., 3, 3) -> camera-space xyz (..., H, W, 3),
+    on a pixel grid of u (column) and v (row) in the depth's dtype."""
+    H, W = depth.shape[-2], depth.shape[-1]
+    vs, us = torch.meshgrid(
+        torch.arange(H, dtype=depth.dtype, device=depth.device),
+        torch.arange(W, dtype=depth.dtype, device=depth.device), indexing="ij")
+    fx = K[..., 0, 0][..., None, None]
+    fy = K[..., 1, 1][..., None, None]
+    px = K[..., 0, 2][..., None, None]
+    py = K[..., 1, 2][..., None, None]
+    x = (us - px) * depth / fx
+    y = (vs - py) * depth / fy
+    return torch.stack([x, y, depth], dim=-1)

@@ -134,3 +134,26 @@ def test_crop_resize(rng):
     close(JZ.crop_resize(jnp.asarray(imgs), jnp.asarray(boxes), 16, 24),
           TZ.crop_resize(torch.from_numpy(imgs), torch.from_numpy(boxes),
                          16, 24))
+
+
+def test_backproject_depth(rng):
+    """Forward and gradient (with respect to depth and K) on a ragged
+    19x23 depth map of two images."""
+    import jax
+    depth = f32(rng, 2, 19, 23, lo=0.5, hi=1.5)
+    K = np.array([[[300.0, 0, 11.3], [0, 310.0, 9.1], [0, 0, 1]],
+                  [[250.0, 0, 12.0], [0, 240.0, 8.5], [0, 0, 1]]], np.float32)
+    w = f32(rng, 2, 19, 23, 3)
+    jf = jax.jit(jax.value_and_grad(
+        lambda d, k: (JG.backproject_depth(d, k) * w).sum(), argnums=(0, 1)))
+    jv, (jgd, jgk) = jf(jnp.asarray(depth), jnp.asarray(K))
+    close(JG.backproject_depth(jnp.asarray(depth), jnp.asarray(K)),
+          TG.backproject_depth(torch.from_numpy(depth), torch.from_numpy(K)))
+    td = torch.tensor(depth, requires_grad=True)
+    tk = torch.tensor(K, requires_grad=True)
+    tv = (TG.backproject_depth(td, tk) * torch.from_numpy(w)).sum()
+    tv.backward()
+    np.testing.assert_allclose(tv.item(), float(jv), rtol=1e-5)
+    close(jgd, td.grad)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jgk), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(jgk)).max()))

@@ -17,6 +17,7 @@ from self6dpp_tpu_torch.data.meshes import make_icosphere
 from self6dpp_tpu_torch.ops import lab_cuda as LC
 from self6dpp_tpu_torch.ops import raster_cuda as RC
 from self6dpp_tpu_torch.ops import rasterizer as TR
+from self6dpp_tpu_torch.ops import sign_cuda as SC
 
 
 @pytest.fixture
@@ -174,6 +175,76 @@ def test_lab_value_grad_rejects_bad_inputs(cuda_device):
         LC.lab_value_grad(x, x.cpu(), m)
     with pytest.raises(ValueError, match="need pred"):
         LC.lab_value_grad(x, x, m[:, :4])
+
+
+def sign_inputs(dev, b, n, seed):
+    """r, i (b, n) float32 with ties, NaN, -0.0 - +0.0 and infinities."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = torch.rand((b, n), generator=g)
+    i = torch.rand((b, n), generator=g)
+    m = b * n // 10
+    k = torch.randperm(b * n, generator=g)[: 5 * m].view(5, m)
+    r.view(-1)[k[0]] = i.view(-1)[k[0]]
+    r.view(-1)[k[1]] = float("nan")
+    i.view(-1)[k[2]] = float("nan")
+    r.view(-1)[k[3]], i.view(-1)[k[3]] = -0.0, 0.0
+    r.view(-1)[k[4]] = float("inf")
+    return r.to(dev), i.to(dev)
+
+
+def same_bits(a, b):
+    """Bitwise equal where b is a number, NaN exactly where b is NaN."""
+    nan = b.isnan()
+    return torch.equal(a.isnan(), nan) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(8, 256 * 256 * 3), (3, 1001)])
+def test_sign_g_matches_plain_bitwise(cuda_device, b, n):
+    """Kernel P1 against sign_g_plain, bitwise (the sign of zero and the NaN
+    positions included), one launch per call."""
+    r, i = sign_inputs(cuda_device, b, n, seed=n)
+    before = SC.sign_g.launches
+    got = SC.sign_g(r, i)
+    torch.cuda.synchronize()
+    assert SC.sign_g.launches == before + 1
+    ref = SC.sign_g_plain(r, i)
+    assert same_bits(got, ref)
+    assert got.signbit()[(r - i) == 0].any() and got.isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(8, 256), (2, 37)])
+def test_sign_g_split_matches_plain_bitwise(cuda_device, b, s):
+    """Kernel P2 on the channel views of NHWC tensors (element stride 3)
+    against sign_g_split_plain, bitwise, and against P1 on each plane."""
+    r, i = sign_inputs(cuda_device, b, s * s * 3, seed=s)
+    r, i = r.view(b, s, s, 3), i.view(b, s, s, 3)
+    rp = tuple(r[..., k].reshape(b, s * s) for k in range(3))
+    ip = tuple(i[..., k].reshape(b, s * s) for k in range(3))
+    assert rp[2].stride() == (3 * s * s, 3)
+    before = SC.sign_g_split.launches
+    got = SC.sign_g_split(rp, ip)
+    torch.cuda.synchronize()
+    assert SC.sign_g_split.launches == before + 1
+    for k, ref in enumerate(SC.sign_g_split_plain(rp, ip)):
+        assert same_bits(got[k], ref), k
+        assert same_bits(got[k], SC.sign_g(rp[k].contiguous(),
+                                           ip[k].contiguous())), k
+
+
+@pytest.mark.cuda
+def test_sign_g_rejects_bad_inputs(cuda_device):
+    x = torch.rand((2, 12), device=cuda_device)
+    with pytest.raises(TypeError):
+        SC.sign_g(x.double(), x.double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        SC.sign_g(x, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        SC.sign_g(x, x[:, :6])
+    with pytest.raises(ValueError, match="one shape"):
+        SC.sign_g_split((x, x, x[:1]), (x, x, x))
 
 
 def test_build_names_nvcc_when_missing(monkeypatch):

@@ -3,7 +3,8 @@ inputs, in float32 on the CPU: the plain version of kernel B3 (LAB value
 and image gradient) against lab_value_grad_pallas (Pallas interpret mode on
 the CPU) and against jax.value_and_grad of lab_loss; the mask edge weights,
 the RW_BCE mask loss, the PM loss with symmetries and the whole pose-mode
-loss suite, values and gradients.
+loss suite (LPIPS on both sides, MS-SSIM, the depth chamfer, LAB through
+its kernel, by autograd or as a given lab_linear), values and gradients.
 """
 
 import dataclasses
@@ -19,12 +20,15 @@ from self6dpp_tpu.config import base as jc
 from self6dpp_tpu.losses import mask_losses as jml
 from self6dpp_tpu.losses import pm_loss as jpm
 from self6dpp_tpu.losses import self_loss as jsl
+from self6dpp_tpu.models import lpips as JL
 from self6dpp_tpu.ops import color as jcolor
 from self6dpp_tpu.ops.lab_pallas import lab_value_grad_pallas
 from self6dpp_tpu_torch import config as tc
+from self6dpp_tpu_torch.convert import lpips_flax_to_state_dict
 from self6dpp_tpu_torch.losses import mask_losses as tml
 from self6dpp_tpu_torch.losses import pm_loss as tpm
 from self6dpp_tpu_torch.losses import self_loss as tsl
+from self6dpp_tpu_torch.models import lpips as TL
 from self6dpp_tpu_torch.ops import color as tcolor
 from self6dpp_tpu_torch.ops.lab_cuda import lab_value_grad, lab_value_grad_plain
 
@@ -162,7 +166,10 @@ def test_pm_loss_matches_jax(flags):
 
 def loss_inputs(b=2, s=32, o=8, regions=4, seed=0):
     """Fixed inputs of compute_self_loss_pose: render, student outputs,
-    teacher labels and batch, as numpy arrays."""
+    teacher labels and batch, as numpy arrays. The image is the render's
+    colour mixed with noise (so every MS-SSIM level is positive, see
+    test_torch_ssim.py), the rendered depth is 0.9-1.1 where the render
+    covers and 0 elsewhere, the observed depth the plane z = 1."""
     rng = np.random.default_rng(seed)
     vis = blobs(rng, b, s)
     f = s // o
@@ -170,9 +177,9 @@ def loss_inputs(b=2, s=32, o=8, regions=4, seed=0):
     u = lambda *shape, lo=0.0, hi=1.0: rng.uniform(lo, hi, shape).astype(
         np.float32)
     x = pm_inputs(b, seed=seed)
+    mask = (u(b, s, s) > 0.5).astype(np.float32)
     ren = {"color": u(b, s, s, 3), "prob": u(b, s, s, lo=0.02, hi=0.98),
-           "mask": (u(b, s, s) > 0.5).astype(np.float32),
-           "depth": u(b, s, s, lo=0.9, hi=1.1)}
+           "mask": mask, "depth": u(b, s, s, lo=0.9, hi=1.1) * mask}
     logits = rng.normal(0, 1, (b, o, o, regions + 1)).astype(np.float32)
     pred = {"rot": x["pred_rots"], "trans": x["pred_transes"],
             "coor": u(b, o, o, 3), "region_logits": logits}
@@ -180,7 +187,11 @@ def loss_inputs(b=2, s=32, o=8, regions=4, seed=0):
     pseudo = {"vis_mask": vis, "vis_mask_lr": vis_lr, "rot": x["gt_rots"],
               "trans": x["gt_transes"], "coor": u(b, o, o, 3),
               "region": (e / e.sum(-1, keepdims=True)).astype(np.float32)}
-    batch = {"roi_img": u(b, s, s, 3), "gt_points": x["points"],
+    K = np.array([[1.5 * s, 0, s / 2], [0, 1.5 * s, s / 2 - 1], [0, 0, 1]],
+                 np.float32)
+    batch = {"roi_img": 0.3 * ren["color"] + 0.7 * u(b, s, s, 3),
+             "roi_depth": np.ones((b, s, s), np.float32),
+             "roi_zoom_K": np.repeat(K[None], b, 0), "gt_points": x["points"],
              "roi_extent": x["extents"], "sym_rots": x["sym_rots"],
              "sym_valid": x["sym_valid"]}
     return ren, pred, pseudo, batch
@@ -193,62 +204,119 @@ def self_cfgs(**kw):
     return j, t
 
 
-DIFF = (("ren", "prob"), ("ren", "color"), ("pred", "rot"), ("pred", "trans"),
-        ("pred", "coor"), ("pred", "region_logits"))
+DIFF = (("ren", "prob"), ("ren", "color"), ("ren", "depth"), ("pred", "rot"),
+        ("pred", "trans"), ("pred", "coor"), ("pred", "region_logits"))
+
+
+@pytest.fixture(scope="module")
+def lpips_pair():
+    """JAX's LPIPS at its own init and the port's with the same weights."""
+    x = jnp.zeros((2, 32, 32, 3))
+    params = jax.jit(JL.LPIPS().init)(jax.random.PRNGKey(1), x, x)["params"]
+    model = TL.LPIPS()
+    model.load_state_dict(lpips_flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, params), model))
+    return (lambda a, b: JL.LPIPS().apply({"params": params}, a, b),
+            model.eval().requires_grad_(False))
+
+
+def run_both(jcfg, tcfg, lpips_pair, lab_linear=None):
+    """(JAX terms, JAX gradients, port terms, port gradients) of the summed
+    terms, with respect to the render and the student's outputs."""
+    ren, pred, pseudo, batch = loss_inputs()
+    jlp, tlp = lpips_pair
+    to_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+    jlin = None if lab_linear is None else tuple(map(jnp.asarray, lab_linear))
+
+    def jloss(ren_d, pred_d):
+        ld = jsl.compute_self_loss_pose(jcfg, ren_d, pred_d, to_j(pseudo),
+                                        to_j(batch), lpips_fn=jlp,
+                                        lab_linear=jlin)
+        return sum(jax.tree.leaves(ld)), ld
+
+    (_, jld), (jgr, jgp) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(to_j(ren), to_j(pred))
+    to_t = lambda d: {k: torch.tensor(v, requires_grad=v.dtype == np.float32)
+                      for k, v in d.items()}
+    tren, tpred = to_t(ren), to_t(pred)
+    tlin = None if lab_linear is None else tuple(map(torch.tensor, lab_linear))
+    tld = tsl.compute_self_loss_pose(
+        tcfg, tren, tpred, {k: torch.from_numpy(v) for k, v in pseudo.items()},
+        {k: torch.from_numpy(v) for k, v in batch.items()}, lpips_fn=tlp,
+        lab_linear=tlin)
+    sum(tld[k] for k in sorted(tld)).backward()
+    return jld, {"ren": jgr, "pred": jgp}, tld, {"ren": tren, "pred": tpred}
+
+
+def assert_terms_and_grads(jld, jg, tld, tg):
+    assert set(tld) == set(jld)
+    for k in jld:
+        np.testing.assert_allclose(tld[k].item(), float(jld[k]), rtol=RTOL,
+                                   err_msg=k)
+    for side, k in DIFF:
+        ref = np.asarray(jg[side][k])
+        got = tg[side][k].grad
+        got = np.zeros_like(ref) if got is None else got.numpy()
+        # the depth's gradient comes from the chamfer alone, held at 1e-5 of
+        # its largest magnitude as in test_torch_chamfer.py (its minima over
+        # ~10^3 candidates and the backprojection's sums round apart)
+        atol = (1e-5 * float(np.abs(ref).max()) if k == "depth"
+                else grad_atol(ref))
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=atol,
+                                   err_msg=f"{side}.{k}")
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(lab_impl="direct"),
                                 dict(mask_loss_type="dice", lab_no_l=False),
                                 dict(mask_edge_reweight=False, lab_lw=0.0)])
-def test_self_loss_pose_matches_jax(kw):
+def test_self_loss_pose_matches_jax(kw, lpips_pair):
     """Every term and the gradient of their sum with respect to the render
-    and the student's outputs. With lab_impl 'pallas' the LAB gradient is
-    injected into a tensor nothing else reads in this suite, so, in both
-    packages, the render's colour gets none."""
+    (prob, colour, depth) and the student's outputs. LPIPS and MS-SSIM read
+    the masked colour after LAB's kernel gradient is injected into it, so
+    the colour's gradient carries LAB's in both packages; the depth's comes
+    from the chamfer."""
     jcfg, tcfg = self_cfgs(**kw)
-    ren, pred, pseudo, batch = loss_inputs()
+    jld, jg, tld, tg = run_both(jcfg, tcfg, lpips_pair)
+    assert {"loss_percep_obj", "loss_ms_ssim", "loss_chamfer"} <= set(tld)
+    assert_terms_and_grads(jld, jg, tld, tg)
+    for k in ("prob", "color", "depth"):
+        assert np.abs(np.asarray(jg["ren"][k])).max() > 0, k
 
-    def jloss(ren_d, pred_d):
-        ld = jsl.compute_self_loss_pose(
-            jcfg, ren_d, pred_d, {k: jnp.asarray(v) for k, v in pseudo.items()},
-            {k: jnp.asarray(v) for k, v in batch.items()})
-        return sum(jax.tree.leaves(ld)), ld
 
-    to_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
-    (_, jld), (jgr, jgp) = jax.value_and_grad(jloss, argnums=(0, 1),
-                                              has_aux=True)(to_j(ren),
-                                                            to_j(pred))
-    to_t = lambda d: {k: torch.tensor(v, requires_grad=v.dtype == np.float32)
-                      for k, v in d.items()}
-    tren, tpred = to_t(ren), to_t(pred)
-    tld = tsl.compute_self_loss_pose(
-        tcfg, tren, tpred, {k: torch.from_numpy(v) for k, v in pseudo.items()},
-        {k: torch.from_numpy(v) for k, v in batch.items()})
-    assert set(tld) == set(jld)
-    for k in jld:
-        np.testing.assert_allclose(tld[k].item(), float(jld[k]), rtol=RTOL,
-                                   err_msg=k)
-    sum(tld[k] for k in sorted(tld)).backward()
-    jg = {"ren": jgr, "pred": jgp}
-    tg = {"ren": tren, "pred": tpred}
-    for side, k in DIFF:
-        ref = np.asarray(jg[side][k])
-        got = tg[side][k].grad
-        got = np.zeros_like(ref) if got is None else got.numpy()
-        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=grad_atol(ref),
-                                   err_msg=f"{side}.{k}")
-    assert np.abs(np.asarray(jgr["prob"])).max() > 0
-    if tcfg.lab_impl == "direct" and tcfg.lab_lw > 0:
-        assert np.abs(np.asarray(jgr["color"])).max() > 0
+def test_self_loss_pose_lab_linear_matches_jax(lpips_pair):
+    """split_lab's loss (LAB weight 0) with a given lab_linear = (value, g):
+    the term is the value, and g joins the colour's gradient."""
+    jcfg, tcfg = self_cfgs(lab_lw=0.0)
+    rng = np.random.default_rng(4)
+    g = (1e-2 * rng.standard_normal((2, 32, 32, 3))).astype(np.float32)
+    lin = (np.float32(0.37), g)
+    jld, jg, tld, tg = run_both(jcfg, tcfg, lpips_pair, lab_linear=lin)
+    assert_terms_and_grads(jld, jg, tld, tg)
+    assert tld["loss_color_ab_obj"].item() == np.float32(0.37)
+    _, jg0, _, _ = run_both(jcfg, tcfg, lpips_pair)
+    assert not np.allclose(np.asarray(jg["ren"]["color"]),
+                           np.asarray(jg0["ren"]["color"]))
 
 
 @pytest.mark.parametrize("kw", [dict(perceptual_lw=0.15), dict(ms_ssim_lw=1.0),
                                 dict(depth_chamfer_lw=1.0), dict(vf_lw=1.0),
                                 dict(norm_lw=1.0), dict(lab_impl="surrogate")])
 def test_self_loss_pose_names_the_later_slice(kw):
+    """vf/norm and the TPU-only LAB modes raise, naming what is missing;
+    LPIPS, MS-SSIM and the chamfer, once of a later slice, now give their
+    terms."""
     _, tcfg = self_cfgs(**kw)
     ren, pred, pseudo, batch = (
         {k: torch.from_numpy(v) for k, v in d.items()} for d in loss_inputs())
+    ported = {"perceptual_lw": "loss_percep_obj", "ms_ssim_lw": "loss_ms_ssim",
+              "depth_chamfer_lw": "loss_chamfer"}
+    (name,) = kw
+    if name in ported:
+        lp = TL.build_lpips("cpu")
+        ld = tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch,
+                                        lpips_fn=lp)
+        assert torch.isfinite(ld[ported[name]])
+        return
     with pytest.raises(ValueError, match="slice|lab_impl"):
         tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch)
 

@@ -142,7 +142,7 @@ def test_create_train_state_teacher_is_a_frozen_copy():
 
 def test_flagship_config_matches_bench_stage2():
     """stage2_pose_flagship() is bench.py's build_stage2(8, dense=False)
-    configuration with LPIPS, MS-SSIM and depth chamfer at weight 0."""
+    configuration, its whole loss suite included."""
     from __graft_entry__ import _flagship_cfg
     j = _flagship_cfg()
     t = tc.stage2_pose_flagship()
@@ -158,8 +158,8 @@ def test_flagship_config_matches_bench_stage2():
     for name in ("model", "solver"):
         within(dataclasses.asdict(getattr(t, name)),
                dataclasses.asdict(getattr(j, name)), name)
-    js = jc.SelfSupConfig(enabled=True, mask_lw=1.0, ms_ssim_lw=0.0, lab_lw=0.2,
-                          depth_chamfer_lw=0.0, perceptual_lw=0.0,
+    js = jc.SelfSupConfig(enabled=True, mask_lw=1.0, ms_ssim_lw=1.0, lab_lw=0.2,
+                          depth_chamfer_lw=1.0, perceptual_lw=0.15,
                           pseudo_pm_lw=10.0, pseudo_trans_lw=1.0)
     within(dataclasses.asdict(t.self_sup), dataclasses.asdict(js), "self_sup")
     assert (t.renderer.tile_px, t.renderer.faces_per_tile) == (32, 128)

@@ -1,8 +1,11 @@
 """The port's stage-II pose-mode step against the JAX package's, on the same
 weights and batch, in float32 on the CPU: two tiny steps (micro backbone,
-64² ROI, 16² output, 2 classes) through Ranger with no warm-up, the
-renderer's fine stage in Pallas interpret mode and LAB through its Pallas
-kernel on the JAX side, the plain versions of B1-B3 on the port's side.
+64² ROI, 16² output, 2 classes) of the whole loss suite (mask, LAB, LPIPS
+with the same weights on both sides, MS-SSIM at 3 levels, depth chamfer,
+init-pred, PM, trans) through Ranger with no warm-up, the renderer's fine
+stage in Pallas interpret mode and LAB through its Pallas kernel on the JAX
+side, the plain versions of B1-B3 on the port's side; and two split_lab
+steps fed a fixed lab_linear.
 
 The pose heads are biased so the student's pose puts the mesh in view (the
 render, and so its gradient, is not empty); the mask logit is biased so the
@@ -32,15 +35,20 @@ from self6dpp_tpu.engine import gdrn_engine as jge
 from self6dpp_tpu.engine import self_engine as jse
 from self6dpp_tpu.engine.optim import build_optimizer
 from self6dpp_tpu.engine.train_state import create_train_state
+from self6dpp_tpu.models.lpips import LPIPS
 from self6dpp_tpu_torch import config as tc
-from self6dpp_tpu_torch.convert import gdrn_flax_to_state_dict
+from self6dpp_tpu_torch.convert import (gdrn_flax_to_state_dict,
+                                        lpips_flax_to_state_dict)
 from self6dpp_tpu_torch.data.meshes import make_icosphere
 from self6dpp_tpu_torch.engine import gdrn_engine as tge
 from self6dpp_tpu_torch.engine import self_engine as tse
+from self6dpp_tpu_torch.models import lpips as TL
 from test_torch_gdrn import port_to_flax
 
 RTOL, ATOL = 1e-4, 1e-6
 STEPS = 2
+RENDER_LOSSES = ("mask_lw", "lab_lw", "perceptual_lw", "ms_ssim_lw",
+                 "depth_chamfer_lw")
 _orig_pallas_call = pl.pallas_call
 
 
@@ -93,8 +101,7 @@ def noisy(params, seed=3, rel=0.05):
     return p
 
 
-@pytest.fixture(scope="module")
-def runs():
+def cpu_run(fn):
     # one torch thread: the CPU build's oneDNN convolution backward has
     # crashed (SIGSEGV) with 4 or more threads on the GDRN backbone + head
     # backward; with one thread, or with torch.backends.mkldnn off, it runs
@@ -103,18 +110,36 @@ def runs():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield _runs()
+        return fn()
     finally:
         torch.set_num_threads(threads)
         mp.undo()
 
 
-def _runs():
+@pytest.fixture(scope="module")
+def runs():
+    return cpu_run(_runs)
+
+
+@pytest.fixture(scope="module")
+def split_run():
+    return cpu_run(_split_run)
+
+
+def setup():
+    """Config, batches, the JAX model, the shared weights (student, teacher,
+    LPIPS) and the port's LPIPS. The batch's image is the mesh rendered at
+    the ground-truth pose, half mixed with the batch's noise: against a
+    noise image some MS-SSIM level's contrast-structure term is negative,
+    where MS-SSIM is 0 and JAX's gradient NaN (test_torch_ssim.py)."""
     tcfg = tc.stage2_pose_tiny()
     tcfg = dataclasses.replace(tcfg, solver=dataclasses.replace(
         tcfg.solver, ema_warmup_iters=1))
     jcfg = jax_cfg(tcfg)
     tb = tse.stage2_batch(tcfg, 2, "cpu", mesh=make_icosphere(0.06, 2))
+    with torch.no_grad():
+        gt = tse.render_student_pose(tcfg, tb, tb["gt_rot"], tb["gt_trans"])
+    tb["roi_img"] = 0.5 * tb["roi_img"] + 0.5 * gt["color"]
     jb = {k: jnp.asarray(np.array(v.numpy())) for k, v in tb.items()}
     z_rel = float(np.median(tb["gt_trans"][:, 2].numpy()
                             / tb["resize_ratio"].numpy()))
@@ -129,39 +154,79 @@ def _runs():
                                  shapes), z_rel)
     teacher = {"params": noisy(variables["params"]),
                "batch_stats": variables["batch_stats"]}
-    tx, _ = build_optimizer(jcfg.solver,
-                            flatten=jcfg.dist.mesh_shape[-1] == 1)
-    jstate = create_train_state(jax.tree_util.tree_map(jnp.asarray,
-                                                       variables["params"]),
-                                variables["batch_stats"], tx)
-    jstate = jstate.replace(ema_params=jax.tree_util.tree_map(
-        jnp.asarray, teacher["params"]))
-    jstep = jax.jit(jse.make_self_train_step(jcfg, jmodel))
+    lp = jax.jit(LPIPS().init)(jax.random.PRNGKey(1), jb["roi_img"],
+                               jb["roi_img"])["params"]
+    tlpips = TL.LPIPS()
+    tlpips.load_state_dict(lpips_flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, lp), tlpips))
+    return dict(tcfg=tcfg, jcfg=jcfg, tb=tb, jb=jb, jmodel=jmodel,
+                variables=variables, teacher=teacher, lp=lp,
+                tlpips=tlpips.eval().requires_grad_(False))
+
+
+def jax_state(s):
+    tx, _ = build_optimizer(s["jcfg"].solver,
+                            flatten=s["jcfg"].dist.mesh_shape[-1] == 1)
+    jstate = create_train_state(
+        jax.tree_util.tree_map(jnp.asarray, s["variables"]["params"]),
+        s["variables"]["batch_stats"], tx)
+    return jstate.replace(ema_params=jax.tree_util.tree_map(
+        jnp.asarray, s["teacher"]["params"]))
+
+
+def port_run(s, cfg, steps, split_lab=False, lab_linear=None):
+    model = tge.build_gdrn(cfg, device="cpu")
+    model.load_state_dict(gdrn_flax_to_state_dict(s["variables"], model))
+    state = tge.init_state(cfg, model)
+    state.teacher.load_state_dict(gdrn_flax_to_state_dict(s["teacher"], model))
+    step = tse.make_self_train_step(cfg, model, s["tlpips"],
+                                    split_lab=split_lab)
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, s["tb"], lab_linear=lab_linear)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _runs():
+    s = setup()
+    jstate = jax_state(s)
+    jstep = jax.jit(jse.make_self_train_step(s["jcfg"], s["jmodel"], LPIPS()))
     jmetrics = []
     for _ in range(STEPS):
-        jstate, m = jstep(jstate, None, jb, jax.random.PRNGKey(0))
+        jstate, m = jstep(jstate, s["lp"], s["jb"], jax.random.PRNGKey(0))
         jmetrics.append({k: float(v) for k, v in m.items()})
 
-    def port(cfg):
-        model = tge.build_gdrn(cfg, device="cpu")
-        model.load_state_dict(gdrn_flax_to_state_dict(variables, model))
-        state = tge.init_state(cfg, model)
-        state.teacher.load_state_dict(gdrn_flax_to_state_dict(teacher, model))
-        step = tse.make_self_train_step(cfg, model)
-        metrics = []
-        for _ in range(STEPS):
-            state, m = step(state, tb)
-            metrics.append({k: float(v) for k, v in m.items()})
-        return state, metrics
-
-    tstate, tmetrics = port(tcfg)
+    tcfg = s["tcfg"]
+    tstate, tmetrics = port_run(s, tcfg, STEPS)
+    # the control zeroes every loss that reads the render
     control = dataclasses.replace(tcfg, self_sup=dataclasses.replace(
-        tcfg.self_sup, mask_lw=0.0, lab_lw=0.0))
-    cstate, _ = port(control)
-    init = gdrn_flax_to_state_dict(variables, tstate.model)
+        tcfg.self_sup, **{k: 0.0 for k in RENDER_LOSSES}))
+    cstate, _ = port_run(s, control, STEPS)
+    init = gdrn_flax_to_state_dict(s["variables"], tstate.model)
     return dict(jstate=jstate, jmetrics=jmetrics, tstate=tstate,
                 tmetrics=tmetrics, cstate=cstate, init=init,
-                variables=variables)
+                variables=s["variables"])
+
+
+def _split_run():
+    """Two split_lab steps (LAB's weight 0 in the loss) fed lab_linear =
+    (0.37, g), g seeded, on both sides. (Two: the schedule's first learning
+    rate is 1e-6, its warm-up factor.)"""
+    s = setup()
+    g = (1e-2 * np.random.default_rng(5).standard_normal(
+        tuple(s["tb"]["roi_img"].shape))).astype(np.float32)
+    jstep = jax.jit(jse.make_self_train_step(s["jcfg"], s["jmodel"], LPIPS(),
+                                             split_lab=True))
+    jstate, jmetrics = jax_state(s), []
+    for _ in range(STEPS):
+        jstate, jm = jstep(jstate, s["lp"], s["jb"], jax.random.PRNGKey(0),
+                           None, None, (jnp.float32(0.37), jnp.asarray(g)))
+        jmetrics.append({k: float(v) for k, v in jm.items()})
+    tstate, tm = port_run(s, s["tcfg"], STEPS, split_lab=True,
+                          lab_linear=(0.37, torch.from_numpy(g)))
+    return dict(jstate=jstate, jmetrics=jmetrics, tstate=tstate, tmetrics=tm,
+                init=gdrn_flax_to_state_dict(s["variables"], tstate.model))
 
 
 def _params(model):
@@ -194,9 +259,10 @@ def test_params_match_jax(runs, which):
 
 
 def test_render_gradient_reaches_params(runs):
-    """Without the mask and LAB terms the update differs from the full
-    step's by more than the tolerance: the render's gradient (through
-    FineRaster's backward) reaches the network."""
+    """Without the losses that read the render (mask, LAB, LPIPS, MS-SSIM,
+    chamfer) the update differs from the full step's by more than the
+    tolerance: the render's gradient (through FineRaster's backward)
+    reaches the network."""
     full = _params(runs["tstate"].model)
     ctrl = _params(runs["cstate"].model)
     diff = max(((full[k] - ctrl[k]).abs()
@@ -204,13 +270,38 @@ def test_render_gradient_reaches_params(runs):
     assert diff > 0, diff
 
 
+def test_split_lab_step_matches_jax(split_run):
+    """The split_lab step with a given lab_linear: every term (LAB's is the
+    given value) and the updated parameters as the JAX step's."""
+    for jm, tm in zip(split_run["jmetrics"], split_run["tmetrics"]):
+        assert set(jm) == set(tm)
+        assert tm["loss_color_ab_obj"] == np.float32(0.37)
+        for k in jm:
+            np.testing.assert_allclose(tm[k], jm[k], rtol=RTOL, err_msg=k)
+    j = split_run["jstate"]
+    ts = split_run["tstate"]
+    ref = gdrn_flax_to_state_dict({"params": j.params,
+                                   "batch_stats": j.batch_stats}, ts.model)
+    got = _params(ts.model)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    init = split_run["init"]
+    moved = max(((got[k] - init[k]).abs() / (ATOL + RTOL * init[k].abs()))
+                .max().item() for k in got)
+    assert moved > 100, moved
+
+
 def test_build_stage2_aims_the_render():
     """build_stage2 aims the heads before the teacher and Ranger's slow
     weights copy them: every ROI's first render shows the mesh, the
     teacher's pseudo mask covers the ROI, and teacher, slow weights and
-    student start equal."""
+    student start equal; its LPIPS is frozen, on the same device."""
     cfg = tc.stage2_pose_tiny()
-    model, state, batch = tse.build_stage2(cfg, 2, "cpu", seed=1)
+    model, state, batch, lpips = tse.build_stage2(cfg, 2, "cpu", seed=1)
+    assert not lpips.training and not any(
+        p.requires_grad for p in lpips.parameters())
+    assert next(lpips.parameters()).device == batch["roi_img"].device
     with torch.no_grad():
         out = model(*tge.model_inputs(batch))
         ren = tse.render_student_pose(cfg, batch, out["rot"], out["trans"])
