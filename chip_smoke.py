@@ -22,9 +22,12 @@ exits non-zero):
      while a spoilt render moves them by more than the tolerance;
   4. serve DeepIM requests in the configured bf16: finite, orthonormal
      poses, and B1 launched once per refine iteration;
-  5. hold B1 (with the soft silhouette), the fine-raster backward (B2) and
-     the LAB value-and-gradient (B3) against their plain versions on one
-     stage-II step's own inputs, and time all three;
+  5. hold B1 (with the soft silhouette and its saved keep, bit for bit),
+     the fine-raster backward (B2, fed that state, without the scatter)
+     and the LAB value-and-gradient (B3) against their plain versions on
+     one stage-II step's own inputs, time all three and the parts of B1
+     and B2, and hold B1 and B2 on a scene whose faces cross both culling
+     cutoffs inside tiles;
   6. run two float32 stage-II steps through the kernels and two through
      the plain versions: losses and parameters agree, the parameters moved
      well past the tolerance, and a step without the losses that read the
@@ -37,6 +40,8 @@ exits non-zero):
      NaN and -0.0, and time both;
   9. run the LAB opaque probe (A, J, J2, A', taking turns step by step) on
      the bf16 step, with one launch of P1 per J step and of P2 per J2 step.
+Every face table and candidate list rasterized outside the timed phases is
+held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
 line and the card's name and power limit, then {"ok": true, "device": ...}
 as the last line. Exits non-zero without a CUDA device.
@@ -44,6 +49,7 @@ as the last line. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -142,6 +148,64 @@ def require(ok, *what) -> None:
     """A check that python -O cannot strip."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+@contextlib.contextmanager
+def cand_order_checked(counts):
+    """While active, every face table and candidate list that
+    rasterizer.raster_inputs makes (so every render of the paths) is held to
+    the fine-raster kernels' precondition, raster_cuda.cand_depth_sorted
+    (B1 stops a covered pixel at its first inside face); counts["inputs"]
+    counts them."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    inner = R.raster_inputs
+
+    def checked(*args, **kw):
+        ftab, cand = inner(*args, **kw)
+        require(RC.cand_depth_sorted(ftab, cand), "cand not depth-sorted")
+        counts["inputs"] += 1
+        return ftab, cand
+    R.raster_inputs = checked
+    try:
+        yield
+    finally:
+        R.raster_inputs = inner
+
+
+@contextlib.contextmanager
+def scatter_counted():
+    """Counts calls of raster_cuda.scatter_to_faces while active (the plain
+    backward's sum into d ftab; B2's kernel path must not call it)."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    inner = RC.scatter_to_faces
+    calls = {"n": 0}
+
+    def counted(*args):
+        calls["n"] += 1
+        return inner(*args)
+    RC.scatter_to_faces = counted
+    try:
+        yield calls
+    finally:
+        RC.scatter_to_faces = inner
+
+
+@contextlib.contextmanager
+def cull_at(b1=None, b2=None):
+    """While active, the fine-raster kernels cull from these squared
+    distances instead of their exact cutoffs (0: every face; a huge value:
+    none): only for timing what the culling saves."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    inner = RC.b1_cull_d2, RC.b2_cull_d2
+    if b1 is not None:
+        RC.b1_cull_d2 = lambda *args: b1
+    if b2 is not None:
+        RC.b2_cull_d2 = lambda *args: b2
+    try:
+        yield
+    finally:
+        RC.b1_cull_d2, RC.b2_cull_d2 = inner
 
 
 def cuda_ms(fn, reps=10, trials=5) -> float:
@@ -292,6 +356,7 @@ def check_kernel(cfg, batch):
     args = (batch["verts"], batch["faces"], batch["colors"], Kz,
             batch["init_rot"], batch["init_trans"])
     ftab, cand = R.raster_inputs(*args, h, w, r.tile_px, r.faces_per_tile)
+    require(RC.cand_depth_sorted(ftab, cand), "DeepIM cand not depth-sorted")
     variants, masks, max_err = {}, {}, 0.0
     for with_prob in (False, True):
         for persp in (True, False):
@@ -303,6 +368,7 @@ def check_kernel(cfg, batch):
             v = compare_raster(got, ref, key)
             masks[key] = ref.mask
             v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
+            v["graph_ms"] = graph_ms(lambda: RC.fine_raster(*call))
             v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
                                     **PLAIN_TIMING)
             variants[key] = v
@@ -329,11 +395,16 @@ def check_kernel(cfg, batch):
         "raster_inputs_ms": cuda_ms(
             lambda: R.raster_inputs(*args, h, w, r.tile_px, r.faces_per_tile)),
     }
+    # the same call with every tile empty: the cost of the output bytes
+    empty = torch.full_like(cand, -1)
+    timing["graph_ms_all_tiles_empty"] = graph_ms(lambda: RC.fine_raster(
+        ftab, empty, h, w, r.tile_px, 1.0, False, True))
     kernel = {
         "name": "fine_raster_fwd", "route": "cuda",
         "source": "self6dpp_tpu_torch/csrc/fine_raster_fwd.cu",
         "replaces": "self6dpp_tpu/ops/raster_pallas.py:420",
         "launches": None, "max_abs_err": max_err, "ms": main["ms"],
+        "graph_ms": main["graph_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": lim["bound_ms"],
         "bound_by": lim["bound_by"], "library_ms": None}
     counts = {k: v for k, v in n.items() if not k.startswith("_")}
@@ -633,12 +704,22 @@ def check_stage2_kernels(cfg, inputs):
     D = (C - RC._GEO) // 3
     P = tp * tp
     fwd_call = (ftab, cand, s, s, tp, S2_SIGMA, True, True)
-    got = RC.fine_raster(*fwd_call)
+    got, keep = RC._fine(*fwd_call, True)     # as FineRaster runs it
     torch.cuda.synchronize()
     ref = RC.fine_raster_plain(*fwd_call)
     b1 = compare_raster(got, ref, "stage-II B1")
+    # the saved state: keep bit for bit as B1's slot loop and the old
+    # backward's recompute multiply it, prob = 1 - keep
+    keep_ref = RC.keep_slot_order_plain(ftab, cand, s, s, tp, S2_SIGMA)
+    b1["keep_same_bits"] = bool(torch.equal(keep.view(torch.int32),
+                                            keep_ref.view(torch.int32)))
+    b1["keep_max_abs_err"] = (keep - keep_ref).abs().max().item()
+    require(b1["keep_same_bits"], "B1's saved keep", b1["keep_max_abs_err"])
+    require(torch.equal(1.0 - keep, got.prob), "B1: prob != 1 - keep")
     n = raster_counts(ftab, cand, ref.mask, tp, s, s, cts)
-    b1["ms"] = cuda_ms(lambda: RC.fine_raster(*fwd_call))
+    # timed as the step runs it: with the saved keep written
+    b1["ms"] = cuda_ms(lambda: RC._fine(*fwd_call, True))
+    b1["graph_ms"] = graph_ms(lambda: RC._fine(*fwd_call, True))
     b1["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*fwd_call),
                              **PLAIN_TIMING)
     b1.update(bound(
@@ -648,18 +729,24 @@ def check_stage2_kernels(cfg, inputs):
     g = torch.Generator(device="cpu").manual_seed(SEED)
     rand_cts = [torch.randn(c.shape, generator=g).to(device) for c in cts]
     b2 = {}
+    saved = (got.face_id, keep)
     for name, c in (("loss", cts), ("random", rand_cts)):
         call = (ftab, cand, *c, s, s, tp, S2_SIGMA, True, True)
-        got = RC.fine_raster_bwd(*call)
-        torch.cuda.synchronize()
-        ref2 = RC.fine_raster_bwd_plain(*call)
+        with scatter_counted() as scatters:
+            got2 = RC.fine_raster_bwd(*call, saved)
+            torch.cuda.synchronize()
+        require(scatters["n"] == 0, "B2's kernel path ran the scatter")
+        ref2 = RC.fine_raster_bwd_plain(*call)          # recomputes the state
         scale = ref2.abs().max().item()
-        err = (got - ref2).abs().max().item() / max(scale, 1e-30)
+        err = (got2 - ref2).abs().max().item() / max(scale, 1e-30)
         require(scale > 0, "B2: zero gradient", name)
         require(err <= TOL_B2, "B2 vs plain", name, err)
         b2[name] = {"rel_err": err, "max_abs": scale}
     call = (ftab, cand, *cts, s, s, tp, S2_SIGMA, True, True)
-    b2["ms"] = cuda_ms(lambda: RC.fine_raster_bwd(*call))
+    b2["ms"] = cuda_ms(lambda: RC.fine_raster_bwd(*call, saved))
+    b2["graph_ms"] = graph_ms(lambda: RC.fine_raster_bwd(*call, saved))
+    b1["graph_ms_parts"], b2["graph_ms_parts"] = raster_parts_ms(
+        fwd_call, call, saved)
     b2["plain_ms"] = cuda_ms(lambda: RC.fine_raster_bwd_plain(*call),
                              **PLAIN_TIMING)
     b2.update(bound(
@@ -692,6 +779,68 @@ def check_stage2_kernels(cfg, inputs):
 
     counts = {k: v for k, v in n.items() if not k.startswith("_")}
     return {"B1": b1, "B2": b2, "B3": b3, "counts": counts}
+
+
+def raster_parts_ms(fwd_call, bwd_call, saved):
+    """Where B1's and B2's device time goes (graph_ms of the same calls
+    with parts of the work taken away): B1 with every tile empty (the
+    output bytes), with every face culled (the slot walk), without culling,
+    without the silhouette; B2 with zero cotangents (the prologue), with the
+    winner chain's or the silhouette's cotangents alone, without culling."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    ftab, cand, *rest = fwd_call
+    dprob, ddepth, dattr = bwd_call[2:5]
+    tail = bwd_call[5:]
+    zero = [torch.zeros_like(x) for x in (dprob, ddepth, dattr)]
+    b1 = {"all_tiles_empty": graph_ms(lambda: RC._fine(
+        ftab, torch.full_like(cand, -1), *rest, True))}
+    with cull_at(b1=0.0):
+        b1["every_face_culled"] = graph_ms(lambda: RC._fine(*fwd_call, True))
+    with cull_at(b1=3e38):
+        b1["no_culling"] = graph_ms(lambda: RC._fine(*fwd_call, True))
+    no_prob = list(fwd_call)
+    no_prob[6] = False
+    b1["no_silhouette"] = graph_ms(lambda: RC._fine(*no_prob, False))
+    bwd = lambda *cts: RC.fine_raster_bwd(ftab, cand, *cts, *tail, saved)
+    b2 = {"zero_cotangents": graph_ms(lambda: bwd(*zero)),
+          "winner_chain_only": graph_ms(lambda: bwd(zero[0], ddepth, dattr)),
+          "silhouette_only": graph_ms(lambda: bwd(dprob, zero[1], zero[2]))}
+    with cull_at(b2=3e38):
+        b2["no_culling"] = graph_ms(lambda: bwd(dprob, ddepth, dattr))
+    return b1, b2
+
+
+def check_cull_scene(device):
+    """Phase 5, the culling: B1 and B2 against their plain versions on
+    raster_cuda.scattered_faces (faces 0 to ~45 px from a tile's pixels, so
+    both cutoffs fall inside tiles; cotangents on some 8 x 4 pixel blocks
+    only and on none of each image's first tile), for persp x sigma in
+    (1.0, 1.5): mask and face_id bitwise equal, the other fields within
+    TOL_KERNEL, d ftab within TOL_B2."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    ftab, cand, cts = RC.scattered_faces(device)
+    h, w, tp = 70, 100, 32
+    require(RC.cand_depth_sorted(ftab, cand), "cull scene: cand order")
+    out = {}
+    for persp in (True, False):
+        for sigma in (1.0, 1.5):
+            call = (ftab, cand, h, w, tp, sigma, True, persp)
+            got, keep = RC._fine(*call, True)
+            torch.cuda.synchronize()
+            ref = RC.fine_raster_plain(*call)
+            key = f"persp={persp},sigma={sigma}"
+            v = compare_raster(got, ref, key)
+            require(torch.equal(got.mask, ref.mask)
+                    and torch.equal(got.face_id, ref.face_id), key)
+            bcall = (ftab, cand, *cts, h, w, tp, sigma, True, persp)
+            g = RC.fine_raster_bwd(*bcall, (got.face_id, keep))
+            torch.cuda.synchronize()
+            r = RC.fine_raster_bwd_plain(*bcall)
+            scale = r.abs().max().item()
+            v["b2_rel_err"] = (g - r).abs().max().item() / max(scale, 1e-30)
+            require(scale > 0 and v["b2_rel_err"] <= TOL_B2, key, v)
+            out[key] = v
+    return out
 
 
 def params_of(model):
@@ -854,7 +1003,9 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
     RC.fine_raster.launches = 0
     RC.fine_raster_bwd.launches = 0
     LC.lab_value_grad.launches = 0
-    times, phases, metrics = timed_steps(step, state, batch, steps)
+    with scatter_counted() as scatters:
+        times, phases, metrics = timed_steps(step, state, batch, steps)
+    require(scatters["n"] == 0, "the step's B2 ran the scatter", scatters)
     launches = {"fine_raster_fwd": RC.fine_raster.launches,
                 "fine_raster_bwd": RC.fine_raster_bwd.launches,
                 "lab_value_grad": LC.lab_value_grad.launches}
@@ -1030,6 +1181,7 @@ def stage2_kernel_lines(k5, launches, k8, probe_launches):
             "name": name, "route": "cuda",
             "source": f"self6dpp_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": launches[count], "max_abs_err": err, "ms": d["ms"],
+            "graph_ms": d["graph_ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None})
     for key, name, call in (("P1", "sign_g", 68), ("P2", "sign_g_split", 110)):
@@ -1040,7 +1192,8 @@ def stage2_kernel_lines(k5, launches, k8, probe_launches):
             "replaces": f"tools/probes/lab_opaque_probe.py:{call}",
             "launches": probe_launches[name],
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
-            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "graph_ms": d["graph_ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None})
     return out
 
@@ -1060,26 +1213,36 @@ def main() -> int:
     from self6dpp_tpu_torch.config import lm_flownet
     from self6dpp_tpu_torch.engine import self_engine as se
     from self6dpp_tpu_torch.kernels import build
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
 
     device = torch.device("cuda")
     cfg = lm_flownet()
+    cand_checks = {"inputs": 0}
     card = card_line()
     t_start = t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(libs)} in {build_s:.2f} s", flush=True)
+    resources = {n: build.resources(n) for n in libs}
+    K = cfg.renderer.faces_per_tile
+    resources["fine_raster_fwd"]["dynamic_smem_bytes"] = RC.fwd_smem_bytes(K)
+    resources["fine_raster_bwd"]["dynamic_smem_bytes"] = (
+        RC.bwd_smem_bytes(K) - RC.bwd_smem_bytes(0))
+    print(f"kernel resources (ptxas): {json.dumps(resources)}", flush=True)
 
     meshes = make_meshes()
     b = cfg.solver.ims_per_batch
-    requests = [make_request(SEED + i, meshes, cfg, device, b)
-                for i in range(1 + REQUESTS)]
+    with cand_order_checked(cand_checks):
+        requests = [make_request(SEED + i, meshes, cfg, device, b)
+                    for i in range(1 + REQUESTS)]
     torch.cuda.synchronize()
 
     clock = {}
     t0 = time.perf_counter()
     kernel, kdetail = check_kernel(cfg, requests[0])
     print(f"kernel vs plain: {json.dumps(kdetail['variants'])}", flush=True)
-    ref32, pdetail = check_path_fp32(cfg, device, requests[0])
+    with cand_order_checked(cand_checks):
+        ref32, pdetail = check_path_fp32(cfg, device, requests[0])
     print(f"fp32 path: {json.dumps(pdetail)}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     launches, sdetail = serve(cfg, device, requests, ref32)
@@ -1100,17 +1263,21 @@ def main() -> int:
     s2 = stage2_cfg("bfloat16")
     cfg32 = stage2_cfg("float32", lr=S2_LR, base=s2)
     s2_built = se.build_stage2(cfg32, S2_BATCH, device, seed=SEED)
-    s2_inputs = stage2_inputs(cfg32, *s2_built[1:])
+    with cand_order_checked(cand_checks):
+        s2_inputs = stage2_inputs(cfg32, *s2_built[1:])
     torch.cuda.synchronize()
     clock["stage2_phase5_build_and_inputs_s"] = time.perf_counter() - t0
     k5 = check_stage2_kernels(cfg32, s2_inputs)
+    k5["cull_scene"] = check_cull_scene(device)
     print("stage-II kernels vs plain: " + json.dumps(
         {k: v for k, v in k5.items()}), flush=True)
     lab = s2_inputs[3]          # the masked render and image, for phase 8
     del s2_inputs
     clock["stage2_phase5_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    s2_ref32, s2_fp32 = check_stage2_fp32(cfg32, device, S2_BATCH, s2_built)
+    with cand_order_checked(cand_checks):
+        s2_ref32, s2_fp32 = check_stage2_fp32(cfg32, device, S2_BATCH,
+                                              s2_built)
     del s2_built
     print(f"stage-II fp32 steps: {json.dumps(s2_fp32)}", flush=True)
     clock["stage2_phase6_s"] = time.perf_counter() - t0
@@ -1150,8 +1317,9 @@ def main() -> int:
               "stage2_kernels": k5, "stage2_fp32": s2_fp32,
               "stage2_steps": s2_steps, "stage2_partial_steps": s2_partial,
               "probe_kernels": k8, "lab_opaque_probe": probe, "clock": clock,
-              "build_s": build_s, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "build_s": build_s, "resources": resources,
+              "cand_order_checks": cand_checks["inputs"],
+              "torch": torch.__version__, "cuda": torch.version.cuda}
     print("record " + json.dumps(record))
     kernels = [kernel] + stage2_kernel_lines(k5, s2_launches, k8,
                                              probe_launches)

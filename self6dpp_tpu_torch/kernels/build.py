@@ -3,7 +3,10 @@
 Each csrc/<name>.cu exports a plain C function and compiles into its own
 shared library, self6dpp_tpu_torch/_build/lib<name>-<hash>.so, where <hash>
 covers the source and the flags: a library is built once per content and
-reused. Build at first use, never at import.
+reused. nvcc's output, with ptxas' resource lines (-Xptxas -v), is kept
+beside it as lib<name>-<hash>.log; resources() reads each kernel's
+registers, static shared memory and spills from there. Build at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,9 +26,11 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # sm_90a: Hopper with its architecture-specific instructions. --fmad=false:
 # no multiply-add contraction, so the kernels round as PyTorch's separate
-# elementwise operations do (see csrc/fine_raster_fwd.cu).
+# elementwise operations do (see csrc/fine_raster_fwd.cu). -Xptxas -v: each
+# kernel's registers, shared memory and spills, for resources().
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 
 def nvcc() -> str:
@@ -69,10 +75,54 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
             os.unlink(tmp)
             errors.append(f"nvcc failed on {n}.cu ({proc.returncode}):\n{out}")
         else:
+            libs[n].with_suffix(".log").write_text(out)
             os.replace(tmp, libs[n])     # atomic: no half-written library
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
+
+
+def _kernel_name(mangled: str) -> str:
+    """The unqualified name of an Itanium-mangled function
+    ('_ZN12_GLOBAL__N_17kernelEPKf' -> 'kernel'); the input if unmangled."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    rest, last = mangled[2:], mangled
+    rest = rest[1:] if rest.startswith("N") else rest
+    while n := re.match(r"\d+", rest):
+        k, size = len(n.group()), int(n.group())
+        last, rest = rest[k:k + size], rest[k + size:]
+    return last
+
+
+def resources(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of csrc/<name>.cu, what ptxas reported when it was built:
+    {kernel: {registers, smem_static_bytes, stack_bytes, spill_store_bytes,
+    spill_load_bytes}}. Dynamic shared memory is set at launch and is not
+    in it. Empty when the library was built without its log."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    out, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       smem_static_bytes=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

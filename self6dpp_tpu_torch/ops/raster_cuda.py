@@ -1,14 +1,29 @@
-"""Fine stage of the rasterizer: the CUDA kernel csrc/fine_raster_fwd.cu and
-its plain PyTorch version.
+"""Fine stage of the rasterizer: the CUDA kernels csrc/fine_raster_fwd.cu
+(B1) and csrc/fine_raster_bwd.cu (B2) and their plain PyTorch versions.
 
-The kernel replaces the TPU kernel B1, self6dpp_tpu/ops/raster_pallas.py::
-_fine_fwd_kernel (fine_raster -> _fine_fwd -> pallas_call). It computes the
-same function without the TPU's layout: no K-minor lane packing, no one-hot
+The kernels replace the TPU kernels of self6dpp_tpu/ops/raster_pallas.py,
+_fine_fwd_kernel (fine_raster -> _fine_fwd -> pallas_call) and
+_fine_bwd_kernel (the custom_vjp's _fine_bwd_rule). They compute the same
+functions without the TPU's layout: no K-minor lane packing, no one-hot
 matmul for the winner gather, no exp(sum(log)) for the silhouette product.
-One block per (image, tile) and one thread per pixel; the tile's candidates
-sit in shared memory; outputs are written straight in image layout. At the
-DeepIM shapes the bytes it writes bound it (most tiles are empty); see the
-source for the design.
+Design (details in the sources):
+  * one thread per pixel, a warp an 8 x 4 block of pixels, a block of 256
+    threads 8 such blocks: a 32 px tile runs as four blocks (tile_px a
+    multiple of 8, at most 32);
+  * _bin_faces packs a tile's valid candidates first, by ascending
+    face-mean depth with stable ties: the kernels' precondition
+    (cand_depth_sorted). So the first slot tells an empty tile, the count of
+    filled slots ends B1's walk, and B1 stops a covered pixel at its first
+    inside face, the z-test winner;
+  * exact culling: a warp skips a face whose bounding box lies at squared
+    distance >= b1_cull_d2 (B1) or b2_cull_d2 (B2) from its pixels' box,
+    where the face's factor 1 - p rounds to 1 (B1) or p to 0 (B2);
+  * under autograd (FineRaster) B1 also writes keep = prod(1 - p) per pixel,
+    which B2 reads with the forward's face_id instead of recomputing the
+    forward; B2 adds straight into a zero-filled d ftab with global atomics
+    (the plain backward keeps per-tile partials and scatter_to_faces).
+At the DeepIM shapes the bytes B1 writes bound it (most tiles are empty);
+at the stage-II shapes the f32 work of the occupied tiles.
 
 Both take the per-image face table and the per-tile candidates that
 rasterizer.raster_inputs makes:
@@ -24,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -31,6 +47,58 @@ from .rasterizer import RasterOut
 
 _GEO = 11               # face-table columns before the attributes
 _MAX_SMEM = 232_448     # bytes of shared memory a block may use on Hopper
+# Culling cutoffs in units of sigma² (the kernels skip a face at squared
+# distance d² >= cutoff * sigma² from a pixel box). B1: exp(-x) <= 2^-25 for
+# x >= 25 ln 2 = 17.33, so 1.f - p rounds to 1.f and the face's factor of
+# keep is exactly 1; 18 leaves room for expf's 2-ulp error and the rounding
+# of d². B2: expf(-x) is exactly 0 for x >= 150 ln 2 = 103.97 (below half
+# the least subnormal), so p = 0 and every gradient term of the face is 0.
+B1_CULL = 18.0
+B2_CULL = 105.0
+# B1 also culls faces at least 1 px from the box (d² >= 1): no edge test of
+# a face of nonzero area passes there, its rounding errors being far smaller.
+INSIDE_CULL_D2 = 1.0
+
+
+def b1_cull_d2(sigma_px: float, with_prob: bool) -> float:
+    """Squared distance from which B1 skips a face."""
+    d2 = B1_CULL * float(sigma_px) ** 2 if with_prob else 0.0
+    return max(d2, INSIDE_CULL_D2)
+
+
+def b2_cull_d2(sigma_px: float) -> float:
+    """Squared distance from which B2 skips a face's silhouette terms."""
+    return B2_CULL * float(sigma_px) ** 2
+
+
+def box_gap_d2(x0, x1, y0, y1, fx0, fx1, fy0, fy1):
+    """Squared distance between the boxes [x0, x1] x [y0, y1] (pixels) and
+    [fx0, fx1] x [fy0, fy1] (a face's bounding box), as the kernels compute
+    it: a lower bound of the distance from any of the pixels to the face."""
+    gx = torch.clamp_min(torch.maximum(fx0 - x1, x0 - fx1), 0.0)
+    gy = torch.clamp_min(torch.maximum(fy0 - y1, y0 - fy1), 0.0)
+    return gx * gx + gy * gy
+
+
+def cand_depth_sorted(ftab: Tensor, cand: Tensor) -> bool:
+    """The kernels' precondition on cand, as rasterizer._bin_faces makes it:
+    per tile the non-empty slots come first, name valid faces, and their
+    face-mean depths never decrease (equal depths: ascending face id)."""
+    B, F, _ = ftab.shape
+    T = cand.shape[0]
+    c = cand.long()
+    filled = c >= 0
+    if (filled[:, 1:] & ~filled[:, :-1]).any():
+        return False
+    rows = ftab[(torch.arange(T, device=c.device) // (T // B))[:, None],
+                c.clamp_min(0)]
+    if not (rows[..., 7][filled] > 0.5).all():
+        return False
+    z = rows[..., 6]
+    both = filled[:, 1:]
+    dz = z[:, 1:] - z[:, :-1]
+    tie_ok = (dz > 0) | ((dz == 0) & (c[:, 1:] > c[:, :-1]))
+    return bool((tie_ok | ~both).all())
 
 
 def _grid(height: int, width: int, tile_px: int) -> tuple[int, int]:
@@ -40,10 +108,18 @@ def _grid(height: int, width: int, tile_px: int) -> tuple[int, int]:
 def fine_raster_plain(ftab: Tensor, cand: Tensor, height: int, width: int,
                       tile_px: int, sigma_px: float, with_prob: bool,
                       persp: bool) -> RasterOut:
-    """Plain PyTorch version of the kernel (the math of the JAX package's
+    """Plain PyTorch version of kernel B1 (the math of the JAX package's
     ops/rasterizer.py::_raster_tile), on any device. Works through the tiles
     in chunks so that a (tiles, pixels, K) intermediate stays near 4M
     elements."""
+    return _fine_plain(ftab, cand, height, width, tile_px, sigma_px,
+                       with_prob, persp)[0]
+
+
+def _fine_plain(ftab, cand, height, width, tile_px, sigma_px, with_prob,
+                persp):
+    """fine_raster_plain and, with the silhouette, keep = prod(1 - p)
+    (B, H, W), the state the backward reads (else None)."""
     B, F, C = ftab.shape
     D = (C - _GEO) // 3
     T, K = cand.shape
@@ -111,19 +187,101 @@ def fine_raster_plain(ftab: Tensor, cand: Tensor, height: int, width: int,
                 _seg_d2(pu, pv, x2, y2, x0, y0))
             p_face = torch.where(inside, 1.0, torch.exp(-d2 / sigma2))
             p_face = torch.where(val[:, None, :], p_face, zero)
-            prob = 1.0 - torch.prod(1.0 - p_face, dim=-1)
+            keep = torch.prod(1.0 - p_face, dim=-1)
+            prob = 1.0 - keep
         else:
             prob = covered.float()
-        outs.append((covered.float(), prob, depth, attr, face_id, bary))
+            keep = prob
+        outs.append((covered.float(), prob, depth, attr, face_id, bary, keep))
 
-    def untile(x):
-        # (B*Tt, P, ...) -> (B, H, W, ...)
-        x = x.reshape((B, th, tw, tile_px, tile_px) + x.shape[2:])
-        x = x.transpose(2, 3).reshape((B, th * tile_px, tw * tile_px)
-                                      + x.shape[5:])
-        return x[:, :height, :width].contiguous()
+    *out, keep = (_untile(torch.cat(parts), B, tw, tile_px, height, width)
+                  for parts in zip(*outs))
+    return RasterOut(*out), keep if with_prob else None
 
-    return RasterOut(*(untile(torch.cat(parts)) for parts in zip(*outs)))
+
+def _untile(x: Tensor, B: int, tw: int, tile_px: int, height: int,
+            width: int) -> Tensor:
+    """(B*Tt, P, ...) tile layout -> (B, H, W, ...) image layout."""
+    th = x.shape[0] // (B * tw)
+    x = x.reshape((B, th, tw, tile_px, tile_px) + x.shape[2:])
+    x = x.transpose(2, 3).reshape((B, th * tile_px, tw * tile_px)
+                                  + x.shape[5:])
+    return x[:, :height, :width].contiguous()
+
+
+def keep_slot_order_plain(ftab: Tensor, cand: Tensor, height: int, width: int,
+                          tile_px: int, sigma_px: float) -> Tensor:
+    """keep = prod_k (1 - p_k) (B, H, W) multiplied slot by slot, in the
+    order of B1's loop and of the recompute the backward made before it read
+    the forward's keep, each step one plain operation (true divisions: a
+    tensor divided by a Python number takes its reciprocal on CUDA). On the
+    card it holds B1's saved keep bit for bit; the checks use it."""
+    B, F, C = ftab.shape
+    T, K = cand.shape
+    th, tw = _grid(height, width, tile_px)
+    dev = ftab.device
+    r = torch.arange(tile_px * tile_px, device=dev)
+    tiles = torch.arange(T, device=dev)
+    ti = tiles % (th * tw)
+    pv = ((ti // tw * tile_px)[:, None] + r // tile_px).float()     # (T,P)
+    pu = ((ti % tw * tile_px)[:, None] + r % tile_px).float()
+    rows = ftab[(tiles // (th * tw))[:, None], cand.long().clamp_min(0)]
+    val = (rows[..., 7] > 0.5) & (cand >= 0)                         # (T,K)
+    sigma2 = torch.tensor(float(sigma_px) ** 2, device=dev)
+    keep = torch.ones_like(pu)
+    for k in range(K):
+        x0, y0, x1, y1, x2, y2 = (rows[:, k, j, None] for j in range(6))
+        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        inv = torch.where(area.abs() > 1e-12, 1.0 / area,
+                          torch.zeros_like(area))
+        w0 = ((x1 - pu) * (y2 - pv) - (x2 - pu) * (y1 - pv)) * inv
+        w1 = ((x2 - pu) * (y0 - pv) - (x0 - pu) * (y2 - pv)) * inv
+        w2 = 1.0 - w0 - w1
+        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+        d2 = torch.minimum(torch.minimum(_seg_d2(pu, pv, x0, y0, x1, y1),
+                                         _seg_d2(pu, pv, x1, y1, x2, y2)),
+                           _seg_d2(pu, pv, x2, y2, x0, y0))
+        p = torch.where(inside, 1.0, torch.exp(-d2 / sigma2))
+        keep = torch.where(val[:, k, None], keep * (1.0 - p), keep)
+    return _untile(keep, B, tw, tile_px, height, width)
+
+
+def scattered_faces(device, seed=0, batch=2, height=70, width=100,
+                    tile_px=32, faces=80, faces_per_tile=128, n_attr=3):
+    """A scene for the kernels' checks, from a seed: `faces` triangles of
+    1-4 px radius scattered over ragged images at random depths (every sixth
+    face's depths copied from its neighbour: equal face-mean depths; a tenth
+    of the faces invalid), binned by rasterizer._bin_faces. A 32 px tile
+    then holds faces from 0 to ~45 px from its pixels, so both kernels'
+    culling cutoffs fall inside its tiles. Cotangents of prob, depth and attr
+    lie on about half of the 8 x 4 pixel blocks and on none of each image's
+    first tile. Returns (ftab, cand, (dprob, ddepth, dattr)) on `device`."""
+    from .rasterizer import _bin_faces, _pack_faces
+    rng = np.random.default_rng(seed)
+    b, f = batch, faces
+    centre = rng.uniform((0, 0), (width, height), (b, f, 1, 2))
+    ang = rng.uniform(0, 2 * np.pi, (b, f, 1)) + np.array([0.0, 2.2, 4.3])
+    rad = rng.uniform(1, 4, (b, f, 1, 1))
+    v2d = centre + rad * np.stack([np.cos(ang), np.sin(ang)], -1)
+    z = rng.uniform(1, 2, (b, f, 3))
+    z[:, 1::6] = z[:, 0::6][:, :z[:, 1::6].shape[1]]
+    valid = rng.uniform(size=(b, f)) > 0.1
+    attr = rng.uniform(size=(b, f, 3, n_attr))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    v2d, z = t(v2d), t(z)
+    valid = torch.as_tensor(valid, device=device)
+    zmean = z.mean(dim=2)
+    ftab = _pack_faces(v2d, zmean, valid, 1.0 / z, t(attr))
+    cand = _bin_faces(v2d, valid, height, width, tile_px, faces_per_tile,
+                      zmean)
+    on = rng.uniform(size=(b, -(-height // 4), -(-width // 8))) > 0.5
+    on = on.repeat(4, 1).repeat(8, 2)[:, :height, :width].copy()
+    on[:, :tile_px, :tile_px] = False
+    on = t(on)
+    cts = (t(rng.normal(size=(b, height, width))) * on,
+           t(rng.normal(size=(b, height, width))) * on,
+           t(rng.normal(size=(b, height, width, n_attr))) * on[..., None])
+    return ftab, cand.reshape(-1, faces_per_tile).contiguous(), cts
 
 
 def _seg_d2(pu, pv, ax, ay, bx, by):
@@ -178,11 +336,15 @@ def scatter_to_faces(partials: Tensor, cand: Tensor, B: int, F: int) -> Tensor:
 def fine_raster_bwd_partials_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
                                    ddepth: Tensor, dattr: Tensor, height: int,
                                    width: int, tile_px: int, sigma_px: float,
-                                   with_prob: bool, persp: bool) -> Tensor:
+                                   with_prob: bool, persp: bool,
+                                   saved: tuple | None = None) -> Tensor:
     """Per-(tile, candidate) gradients (B*T, K, C) of the fine stage, from
     the cotangents of prob, depth and attr ((B,H,W), (B,H,W), (B,H,W,D)):
     the rule of the JAX package's ops/raster_pallas.py::_fine_bwd_body,
     written with tensors and chunked over tiles as fine_raster_plain is.
+    saved = (face_id, keep), the forward's winner and silhouette product
+    (keep may be None without the silhouette), replaces their recompute;
+    None recomputes them.
 
     The winner's columns get the gradients through the perspective-
     corrected barycentrics, the clip-and-renormalise chain (strict
@@ -203,6 +365,11 @@ def fine_raster_bwd_partials_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
     dprob_t = _tile_pixels(dprob, tile_px, Tt, tw)
     ddep_t = _tile_pixels(ddepth, tile_px, Tt, tw)
     dattr_t = _tile_pixels(dattr, tile_px, Tt, tw)
+    if saved is not None:
+        # -1 past the ragged image edge, like an uncovered pixel
+        fid_t = _tile_pixels(saved[0] + 1, tile_px, Tt, tw).long() - 1
+        keep_t = (None if saved[1] is None
+                  else _tile_pixels(saved[1], tile_px, Tt, tw))
     chunk = max(1, (1 << 22) // (P * K))
     outs = []
     for s in range(0, T, chunk):
@@ -224,9 +391,15 @@ def fine_raster_bwd_partials_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
         w1 = e1 * inv_area
         w2 = 1.0 - w0 - w1                                         # (n,P,K)
         inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & val[:, None, :]
-        zkey = torch.where(inside, rows[:, None, :, 6], torch.inf)
-        best = zkey.argmin(dim=-1)                                 # (n,P)
-        covf = inside.any(dim=-1).float()
+        if saved is None:
+            zkey = torch.where(inside, rows[:, None, :, 6], torch.inf)
+            best = zkey.argmin(dim=-1)                             # (n,P)
+            covf = inside.any(dim=-1).float()
+        else:
+            fid = fid_t[s:s + n]
+            # the winner's slot; face ids are unique within a tile
+            best = (c[:, None, :] == fid[..., None]).int().argmax(-1)
+            covf = (fid >= 0).float()
         take = lambda a: a.gather(-1, best[..., None])[..., 0]
         b0r, b1r, b2r = take(w0), take(w1), take(w2)
         c0, c1, c2 = (b.clamp(0.0, 1.0) for b in (b0r, b1r, b2r))
@@ -282,7 +455,10 @@ def fine_raster_bwd_partials_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
             p_face = torch.where(inside, 1.0, torch.exp(-d2 / sigma2))
             p_face = torch.where(val[:, None, :], p_face, 0.0)
             one_m = 1.0 - p_face
-            tprod = torch.prod(one_m, dim=-1, keepdim=True)
+            if saved is None:
+                tprod = torch.prod(one_m, dim=-1, keepdim=True)
+            else:
+                tprod = keep_t[s:s + n][..., None]
             loo = torch.where(one_m > 1e-6, tprod / one_m.clamp_min(1e-6), 0.0)
             dp_face = dprob_t[s:s + n][..., None] * loo
             outside = ~inside & val[:, None, :]
@@ -303,12 +479,15 @@ def fine_raster_bwd_partials_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
 def fine_raster_bwd_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
                           ddepth: Tensor, dattr: Tensor, height: int,
                           width: int, tile_px: int, sigma_px: float,
-                          with_prob: bool, persp: bool) -> Tensor:
-    """Plain PyTorch version of kernel B2: d ftab (B, F, C) on any device."""
+                          with_prob: bool, persp: bool,
+                          saved: tuple | None = None) -> Tensor:
+    """Plain PyTorch version of kernel B2: d ftab (B, F, C) on any device,
+    from the forward's saved (face_id, keep) or, with saved=None, from a
+    recompute of them."""
     B, F, _ = ftab.shape
     part = fine_raster_bwd_partials_plain(ftab, cand, dprob, ddepth, dattr,
                                           height, width, tile_px, sigma_px,
-                                          with_prob, persp)
+                                          with_prob, persp, saved)
     return scatter_to_faces(part, cand, B, F)
 
 
@@ -316,28 +495,14 @@ def fine_raster_bwd_plain(ftab: Tensor, cand: Tensor, dprob: Tensor,
 def _lib() -> ctypes.CDLL:
     from ..kernels import build
     lib = build.load("fine_raster_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fine_raster_fwd.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, i, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fine_raster_fwd.argtypes = [p] * 9 + [i] * 9 + [f, f, i, i, p]
     lib.fine_raster_fwd.restype = i
     return lib
 
 
-def fine_raster(ftab: Tensor, cand: Tensor, height: int, width: int,
-                tile_px: int, sigma_px: float, with_prob: bool,
-                persp: bool) -> RasterOut:
-    """Fine stage: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. `fine_raster.launches` counts kernel launches."""
-    if ftab.device.type == "cpu" and cand.device.type == "cpu":
-        return fine_raster_plain(ftab, cand, height, width, tile_px, sigma_px,
-                                 with_prob, persp)
-    if ftab.device.type != "cuda" or cand.device != ftab.device:
-        raise ValueError(f"ftab on {ftab.device}, cand on {cand.device}: "
-                         "both must lie on one CUDA device (or the CPU)")
-    if ftab.dtype != torch.float32 or cand.dtype != torch.int32:
-        raise TypeError(f"need ftab float32 and cand int32, got {ftab.dtype} "
-                        f"and {cand.dtype}")
-    if not (ftab.is_contiguous() and cand.is_contiguous()):
-        raise ValueError("ftab and cand must be contiguous")
+def _check_tiles(what, ftab, cand, height, width, tile_px):
+    """Shapes the kernels take; returns (B, F, C, D, T, K, th, tw)."""
     B, F, C = ftab.shape
     D, rem = divmod(C - _GEO, 3)
     th, tw = _grid(height, width, tile_px)
@@ -347,11 +512,42 @@ def fine_raster(ftab: Tensor, cand: Tensor, height: int, width: int,
     if T != B * th * tw:
         raise ValueError(f"cand has {T} tiles; {B} images of {height}x{width} "
                          f"in {tile_px} px tiles need {B * th * tw}")
-    if not 1 <= tile_px * tile_px <= 1024:
-        raise ValueError(f"tile_px {tile_px}: one thread per pixel allows at "
-                         "most 32")
-    if K * (C + 2) * 4 > _MAX_SMEM:
-        raise ValueError(f"K={K} candidates of {C} floats exceed shared memory")
+    if tile_px % 8 or not 8 <= tile_px <= 32:
+        raise ValueError(f"tile_px {tile_px}: {what} takes 8 x 4 pixel blocks "
+                         "per warp (a multiple of 8, at most 32)")
+    return B, F, C, D, T, K, th, tw
+
+
+def fine_raster(ftab: Tensor, cand: Tensor, height: int, width: int,
+                tile_px: int, sigma_px: float, with_prob: bool,
+                persp: bool) -> RasterOut:
+    """Fine stage: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. cand must be depth-sorted per tile as _bin_faces makes it
+    (cand_depth_sorted). `fine_raster.launches` counts kernel launches."""
+    return _fine(ftab, cand, height, width, tile_px, sigma_px, with_prob,
+                 persp, False)[0]
+
+
+def _fine(ftab, cand, height, width, tile_px, sigma_px, with_prob, persp,
+          want_keep):
+    """fine_raster and, when want_keep and with_prob, keep = prod(1 - p)
+    (B, H, W) for the backward (else None)."""
+    if ftab.device.type == "cpu" and cand.device.type == "cpu":
+        out, keep = _fine_plain(ftab, cand, height, width, tile_px, sigma_px,
+                                with_prob, persp)
+        return out, keep if want_keep else None
+    if ftab.device.type != "cuda" or cand.device != ftab.device:
+        raise ValueError(f"ftab on {ftab.device}, cand on {cand.device}: "
+                         "both must lie on one CUDA device (or the CPU)")
+    if ftab.dtype != torch.float32 or cand.dtype != torch.int32:
+        raise TypeError(f"need ftab float32 and cand int32, got {ftab.dtype} "
+                        f"and {cand.dtype}")
+    if not (ftab.is_contiguous() and cand.is_contiguous()):
+        raise ValueError("ftab and cand must be contiguous")
+    B, F, C, D, T, K, th, tw = _check_tiles("the forward kernel", ftab, cand,
+                                            height, width, tile_px)
+    if fwd_smem_bytes(K) > _MAX_SMEM:
+        raise ValueError(f"K={K} candidates exceed shared memory")
 
     f32 = dict(dtype=torch.float32, device=ftab.device)
     mask = torch.empty((B, height, width), **f32)
@@ -361,80 +557,106 @@ def fine_raster(ftab: Tensor, cand: Tensor, height: int, width: int,
     face_id = torch.empty((B, height, width), dtype=torch.int32,
                           device=ftab.device)
     bary = torch.empty((B, height, width, 3), **f32)
+    keep = (torch.empty((B, height, width), **f32)
+            if want_keep and with_prob else None)
     with torch.cuda.device(ftab.device):
         stream = torch.cuda.current_stream(ftab.device).cuda_stream
         err = _lib().fine_raster_fwd(
             ftab.data_ptr(), cand.data_ptr(), mask.data_ptr(),
             prob.data_ptr(), depth.data_ptr(), attr.data_ptr(),
-            face_id.data_ptr(), bary.data_ptr(), T, F, height, width, tile_px,
-            tw, th * tw, K, D, float(sigma_px) ** 2, int(with_prob),
-            int(persp), stream)
+            face_id.data_ptr(), bary.data_ptr(),
+            None if keep is None else keep.data_ptr(), T, F, height, width,
+            tile_px, tw, th * tw, K, D, float(sigma_px) ** 2,
+            b1_cull_d2(sigma_px, with_prob), int(with_prob), int(persp),
+            stream)
     if err != 0:
         raise RuntimeError(f"fine_raster_fwd launch failed: CUDA error {err}")
     fine_raster.launches += 1
-    return RasterOut(mask, prob, depth, attr, face_id, bary)
+    return RasterOut(mask, prob, depth, attr, face_id, bary), keep
 
 
 fine_raster.launches = 0
+
+
+def fwd_smem_bytes(K: int) -> int:
+    """Dynamic shared memory of a B1 block (csrc/fine_raster_fwd.cu)."""
+    return K * (3 * 16 + 3 * 4)
+
+
+def bwd_smem_bytes(K: int) -> int:
+    """Shared memory of a B2 block, dynamic (K candidates) and static (the
+    block's 256 compacted pixels) (csrc/fine_raster_bwd.cu)."""
+    return K * (2 * 16 + 8 + 3 * 4) + 16 * (256 + 8) + 4 * (8 + 2)
 
 
 @functools.cache
 def _lib_bwd() -> ctypes.CDLL:
     from ..kernels import build
     lib = build.load("fine_raster_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fine_raster_bwd.argtypes = [p] * 6 + [i] * 9 + [ctypes.c_float, i, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fine_raster_bwd.argtypes = [p] * 8 + [i] * 9 + [f, f, i, i, p]
     lib.fine_raster_bwd.restype = i
     return lib
 
 
 def fine_raster_bwd(ftab: Tensor, cand: Tensor, dprob: Tensor, ddepth: Tensor,
                     dattr: Tensor, height: int, width: int, tile_px: int,
-                    sigma_px: float, with_prob: bool, persp: bool) -> Tensor:
-    """Backward of the fine stage, d ftab (B, F, C): the CUDA kernel
-    csrc/fine_raster_bwd.cu (per-tile partials, then scatter_to_faces) for
-    CUDA tensors, the plain version for CPU tensors.
+                    sigma_px: float, with_prob: bool, persp: bool,
+                    saved: tuple | None) -> Tensor:
+    """Backward of the fine stage, d ftab (B, F, C), from the forward's
+    saved (face_id, keep) (keep None without the silhouette): the CUDA
+    kernel csrc/fine_raster_bwd.cu for CUDA tensors (one launch into a
+    zero-filled d ftab), the plain version for CPU tensors.
     `fine_raster_bwd.launches` counts kernel launches."""
     if ftab.device.type == "cpu" and cand.device.type == "cpu":
         return fine_raster_bwd_plain(ftab, cand, dprob, ddepth, dattr, height,
-                                     width, tile_px, sigma_px, with_prob, persp)
-    grads = (dprob, ddepth, dattr)
+                                     width, tile_px, sigma_px, with_prob,
+                                     persp, saved)
+    if saved is None or (with_prob and saved[1] is None):
+        raise ValueError("the kernel needs the forward's face_id (and keep "
+                         "with the silhouette)")
+    face_id, keep = saved
+    if not with_prob:
+        keep = None
+    tensors = (cand, face_id, dprob, ddepth, dattr) + (
+        () if keep is None else (keep,))
     if ftab.device.type != "cuda" or any(x.device != ftab.device
-                                         for x in (cand,) + grads):
-        raise ValueError("ftab, cand and the cotangents must lie on one CUDA "
-                         "device (or the CPU)")
-    if ftab.dtype != torch.float32 or cand.dtype != torch.int32 or any(
-            g.dtype != torch.float32 for g in grads):
-        raise TypeError("need float32 ftab and cotangents and int32 cand")
-    B, F, C = ftab.shape
-    D = (C - _GEO) // 3
-    th, tw = _grid(height, width, tile_px)
-    T, K = cand.shape
-    if T != B * th * tw:
-        raise ValueError(f"cand has {T} tiles; {B} images of {height}x{width} "
-                         f"in {tile_px} px tiles need {B * th * tw}")
-    if (tile_px * tile_px) % 32 or tile_px > 32:
-        raise ValueError(f"tile_px {tile_px}: the backward needs whole warps "
-                         "(tile_px² a multiple of 32, at most 32²)")
-    if dprob.shape != (B, height, width) or ddepth.shape != (B, height, width) \
-            or dattr.shape != (B, height, width, D):
-        raise ValueError("cotangent shapes do not match the image")
-    if K * (2 * C + 2) * 4 > _MAX_SMEM:
-        raise ValueError(f"K={K} candidates of {C} floats exceed shared memory")
-    ftab, cand = ftab.contiguous(), cand.contiguous()
-    dprob, ddepth, dattr = (g.contiguous() for g in grads)
-    partials = torch.empty((T, K, C), dtype=torch.float32, device=ftab.device)
+                                         for x in tensors):
+        raise ValueError("ftab, cand, the saved state and the cotangents "
+                         "must lie on one CUDA device (or the CPU)")
+    if (cand.dtype != torch.int32 or face_id.dtype != torch.int32 or any(
+            x.dtype != torch.float32
+            for x in (ftab, dprob, ddepth, dattr)
+            + (() if keep is None else (keep,)))):
+        raise TypeError("need float32 ftab, keep and cotangents and int32 "
+                        "cand and face_id")
+    B, F, C, D, T, K, th, tw = _check_tiles("the backward kernel", ftab, cand,
+                                            height, width, tile_px)
+    img = (B, height, width)
+    if dprob.shape != img or ddepth.shape != img or face_id.shape != img \
+            or dattr.shape != img + (D,) \
+            or (keep is not None and keep.shape != img):
+        raise ValueError("cotangent or saved-state shapes do not match the "
+                         "image")
+    if bwd_smem_bytes(K) > _MAX_SMEM:
+        raise ValueError(f"K={K} candidates exceed shared memory")
+    ftab, cand, face_id = ftab.contiguous(), cand.contiguous(), \
+        face_id.contiguous()
+    dprob, ddepth, dattr = (g.contiguous() for g in (dprob, ddepth, dattr))
+    keep = None if keep is None else keep.contiguous()
+    dftab = torch.zeros((B, F, C), dtype=torch.float32, device=ftab.device)
     with torch.cuda.device(ftab.device):
         stream = torch.cuda.current_stream(ftab.device).cuda_stream
         err = _lib_bwd().fine_raster_bwd(
-            ftab.data_ptr(), cand.data_ptr(), dprob.data_ptr(),
-            ddepth.data_ptr(), dattr.data_ptr(), partials.data_ptr(), T, F,
+            ftab.data_ptr(), cand.data_ptr(), face_id.data_ptr(),
+            None if keep is None else keep.data_ptr(), dprob.data_ptr(),
+            ddepth.data_ptr(), dattr.data_ptr(), dftab.data_ptr(), T, F,
             height, width, tile_px, tw, th * tw, K, D, float(sigma_px) ** 2,
-            int(with_prob), int(persp), stream)
+            b2_cull_d2(sigma_px), int(with_prob), int(persp), stream)
     if err != 0:
         raise RuntimeError(f"fine_raster_bwd launch failed: CUDA error {err}")
     fine_raster_bwd.launches += 1
-    return scatter_to_faces(partials, cand, B, F)
+    return dftab
 
 
 fine_raster_bwd.launches = 0
@@ -444,17 +666,21 @@ class FineRaster(torch.autograd.Function):
     """The fine stage with its analytic backward (the JAX package's
     fine_raster custom_vjp): forward B1 / fine_raster_plain, backward B2 /
     fine_raster_bwd_plain, by `impl` ('kernel': the kernels for CUDA
-    tensors; 'plain': the plain versions on any device). Gradients flow
-    from prob, depth and attr to the face table; mask, face_id and bary are
-    not differentiable."""
+    tensors; 'plain': the plain versions on any device). The forward saves
+    its face_id and, with the silhouette, keep = prod(1 - p) for the
+    backward. Gradients flow from prob, depth and attr to the face table;
+    mask, face_id and bary are not differentiable."""
 
     @staticmethod
     def forward(ctx, ftab, cand, height, width, tile_px, sigma_px, with_prob,
                 persp, impl):
-        fwd = fine_raster if impl == "kernel" else fine_raster_plain
-        out = fwd(ftab, cand, height, width, tile_px, sigma_px, with_prob,
-                  persp)
-        ctx.save_for_backward(ftab, cand)
+        if impl == "kernel":
+            out, keep = _fine(ftab, cand, height, width, tile_px, sigma_px,
+                              with_prob, persp, True)
+        else:
+            out, keep = _fine_plain(ftab, cand, height, width, tile_px,
+                                    sigma_px, with_prob, persp)
+        ctx.save_for_backward(ftab, cand, out.face_id, keep)
         ctx.args = (height, width, tile_px, sigma_px, with_prob, persp, impl)
         ctx.mark_non_differentiable(out.mask, out.face_id, out.bary)
         return tuple(out)
@@ -462,8 +688,8 @@ class FineRaster(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dmask, dprob, ddepth, dattr, dface_id, dbary):
-        ftab, cand = ctx.saved_tensors
+        ftab, cand, face_id, keep = ctx.saved_tensors
         *args, impl = ctx.args
         bwd = fine_raster_bwd if impl == "kernel" else fine_raster_bwd_plain
-        dftab = bwd(ftab, cand, dprob, ddepth, dattr, *args)
+        dftab = bwd(ftab, cand, dprob, ddepth, dattr, *args, (face_id, keep))
         return (dftab,) + (None,) * 8

@@ -73,6 +73,13 @@ def test_fine_raster_rejects_bad_inputs(cuda_device):
         RC.fine_raster(ftab, cand.long(), 64, 64, 16, 1.0, False, True)
     with pytest.raises(ValueError, match="CUDA device"):
         RC.fine_raster(ftab, cand.cpu(), 64, 64, 16, 1.0, False, True)
+    ftab4, cand4 = sphere_inputs(cuda_device, 64, 64, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        RC.fine_raster(ftab4, cand4, 64, 64, 4, 1.0, False, True)
+    cts = cotangents(cuda_device, 64, 64, 3)
+    with pytest.raises(ValueError, match="face_id"):
+        RC.fine_raster_bwd(ftab, cand, *cts, 64, 64, 16, 1.0, True, True,
+                           None)
 
 
 def cotangents(dev, height, width, n_attr, seed=0):
@@ -87,15 +94,18 @@ def cotangents(dev, height, width, n_attr, seed=0):
     (True, True, 32, 2), (True, True, 8, 1)])
 def test_fine_raster_bwd_matches_plain(cuda_device, with_prob, persp, tile_px,
                                        n_attr):
-    """Kernel B2 against fine_raster_bwd_plain on a ragged 190x200 image:
-    d ftab within 1e-4 of its largest magnitude (shared-memory adds sum in
-    another order)."""
+    """Kernel B2, fed B1's saved face_id and keep, against
+    fine_raster_bwd_plain, which recomputes them, on a ragged 190x200
+    image: d ftab within 1e-4 of its largest magnitude (global atomics sum
+    in another order)."""
     ftab, cand = sphere_inputs(cuda_device, 190, 200, tile_px, n_attr)
     dprob, ddepth, dattr = cotangents(cuda_device, 190, 200, n_attr)
     call = (ftab, cand, dprob, ddepth, dattr, 190, 200, tile_px, 1.5,
             with_prob, persp)
+    out, keep = RC._fine(ftab, cand, 190, 200, tile_px, 1.5, with_prob,
+                         persp, True)
     before = RC.fine_raster_bwd.launches
-    got = RC.fine_raster_bwd(*call)
+    got = RC.fine_raster_bwd(*call, (out.face_id, keep))
     torch.cuda.synchronize()
     assert RC.fine_raster_bwd.launches == before + 1
     ref = RC.fine_raster_bwd_plain(*call)
@@ -103,6 +113,76 @@ def test_fine_raster_bwd_matches_plain(cuda_device, with_prob, persp, tile_px,
     assert scale > 0
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * scale)
     assert not got[..., 7].any()                       # `valid` gets nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_px", [16, 32])
+def test_saved_keep_matches_slot_order_product(cuda_device, tile_px):
+    """B1's saved keep equals, bit for bit, prod(1 - p) multiplied slot by
+    slot with plain operations on the card (the old backward's recompute):
+    culled faces multiply by exactly 1 and a covered pixel's product is
+    exactly 0. The same product on the CPU (another exp) agrees within
+    1e-6; prob is 1 - keep."""
+    ftab, cand = sphere_inputs(cuda_device, 190, 200, tile_px)
+    assert RC.cand_depth_sorted(ftab, cand)
+    out, keep = RC._fine(ftab, cand, 190, 200, tile_px, 1.5, True, True, True)
+    ref = RC.keep_slot_order_plain(ftab, cand, 190, 200, tile_px, 1.5)
+    assert torch.equal(keep.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(1.0 - keep, out.prob)
+    assert (keep[out.mask > 0] == 0).all() and ((keep > 0) & (keep < 1)).any()
+    cpu = RC.keep_slot_order_plain(ftab.cpu(), cand.cpu(), 190, 200, tile_px,
+                                   1.5)
+    torch.testing.assert_close(keep.cpu(), cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("persp", [True, False])
+@pytest.mark.parametrize("sigma", [1.0, 1.5])
+def test_culling_is_exact_on_scattered_faces(cuda_device, persp, sigma):
+    """On raster_cuda.scattered_faces both kernels' cutoffs fall inside
+    tiles: B1's mask and face_id equal the plain version's bitwise (floats
+    within 1e-5), B2 on cotangents that cover some warps' pixels only (and
+    no pixel of each image's first tile) within 1e-4 of its largest
+    magnitude, and zero cotangents give a zero d ftab."""
+    ftab, cand, cts = RC.scattered_faces(cuda_device)
+    call = (ftab, cand, 70, 100, 32, sigma, True, persp)
+    out, keep = RC._fine(*call, True)
+    torch.cuda.synchronize()
+    ref = RC.fine_raster_plain(*call)
+    assert torch.equal(out.mask, ref.mask)
+    assert torch.equal(out.face_id, ref.face_id)
+    assert ref.mask.sum() > 0
+    for name in ("prob", "depth", "attr", "bary"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   rtol=0, atol=1e-5, msg=name)
+    bcall = (ftab, cand, *cts, 70, 100, 32, sigma, True, persp)
+    got = RC.fine_raster_bwd(*bcall, (out.face_id, keep))
+    want = RC.fine_raster_bwd_plain(*bcall)
+    scale = want.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    zero = [torch.zeros_like(c) for c in cts]
+    assert not RC.fine_raster_bwd(ftab, cand, *zero, 70, 100, 32, sigma,
+                                  True, persp, (out.face_id, keep)).any()
+
+
+@pytest.mark.cuda
+def test_kernel_backward_skips_the_scatter(cuda_device, monkeypatch):
+    """FineRaster's kernel path launches B1 and B2 once each and never runs
+    scatter_to_faces, the plain backward's sum into d ftab."""
+    def no_scatter(*args):
+        raise AssertionError("scatter_to_faces on the kernel path")
+    monkeypatch.setattr(RC, "scatter_to_faces", no_scatter)
+    ftab, cand = sphere_inputs(cuda_device, 128, 96, 32)
+    ftab.requires_grad_(True)
+    before = (RC.fine_raster.launches, RC.fine_raster_bwd.launches)
+    out = RC.FineRaster.apply(ftab, cand, 128, 96, 32, 1.5, True, True,
+                              "kernel")
+    (g,) = torch.autograd.grad(out[1].sum() + out[3].sum(), ftab)
+    torch.cuda.synchronize()
+    assert (RC.fine_raster.launches - before[0],
+            RC.fine_raster_bwd.launches - before[1]) == (1, 1)
+    assert g.abs().max() > 0
 
 
 @pytest.mark.cuda
