@@ -24,10 +24,13 @@ exits non-zero):
      poses, and B1 launched once per refine iteration;
   5. hold B1 (with the soft silhouette and its saved keep, bit for bit),
      the fine-raster backward (B2, fed that state, without the scatter)
-     and the LAB value-and-gradient (B3) against their plain versions on
-     one stage-II step's own inputs, time all three and the parts of B1
-     and B2, and hold B1 and B2 on a scene whose faces cross both culling
-     cutoffs inside tiles;
+     and the LAB value-and-gradient (B3, its normalised and its scaled
+     entry) against their plain versions on one stage-II step's own
+     inputs (B3 also against the same chain in float64), time all three
+     and the parts of each (lab_parts_ms for B3: its launch alone, the
+     normalised call and the call as the step makes it, to the cotangent),
+     and hold B1 and B2 on a scene whose faces cross both culling cutoffs
+     inside tiles;
   6. run two float32 stage-II steps through the kernels and two through
      the plain versions: losses and parameters agree, the parameters moved
      well past the tolerance, and a step without the losses that read the
@@ -85,6 +88,11 @@ PERTURB = {"attr zeroed": True, "attr shifted 1 px": False}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# the special-function units (reciprocal, log2, exp2): 16 results a clock
+# per SM on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), x 132 SMs x 1.98 GHz, the clock that the f32 peak
+# (132 x 128 lanes x 2 x 1.98e9) implies
+PEAK_SFU = 132 * 16 * 1.98e9
 # f32 operations that the functions need, counted from the kernels'
 # sources (a comparison, a transcendental or a division counts as one).
 # Per (pixel, valid candidate): the edge functions (6 offsets, 4 products,
@@ -110,7 +118,21 @@ OPS_WIN_FWD = 37
 # (8) and the sum over pixels (4).
 OPS_WIN_BWD = 153
 OPS_SEG_BWD = 22
-OPS_LAB = 135
+# B3 per pixel, counted from csrc/lab_value_grad.cu in f32 operations (a
+# fused multiply-add counts two, as the f32 peak does). Always: the branch
+# tests (12), the two XYZ mixes (2 x 17), the a, b differences (8), |.| and
+# their sum (3), the signs (6), d/d(fx, fy, fz) (5), d/d(x, y, z) (5), the
+# gradient's mix, dlin and mask (21), the value and mask sums (3); with L,
+# its difference, |.|, sign and terms (9). Per channel on the power branch
+# (t^2.4 = u t^2, u = t^0.4 from log2, exp2 and one Newton step with a
+# reciprocal): pred 13 and gt 11, and 3 at the SFU; on the linear branch 1.
+# Per XYZ value on the cube-root branch (an inverse cube root from log2,
+# exp2 and one Newton step, then one step on the root): pred 17 with df,
+# gt 16, and 2 at the SFU; on the linear branch 2. The data decides the
+# branches (lab_ops).
+OPS_LAB, OPS_LAB_L = 97, 9
+OPS_LAB_POW = {"pred": (13, 3), "gt": (11, 3)}       # (f32, SFU)
+OPS_LAB_CUBE = {"pred": (17, 2), "gt": (16, 2)}
 
 # stage-II (phases 5-9)
 S2_BATCH = 8                      # ROIs per step (bench.py::build_stage2)
@@ -123,9 +145,8 @@ OPS_SIGN = 4                      # P1/P2 per element: difference, 2 tests, scal
 S2_SIGMA = 1.5                    # soft-silhouette sigma of the student render
 S2_TIMED_STEPS = 20               # bf16 steps timed after one warm-up step
 S2_PARTIAL_STEPS = 5              # the partial step's, for its median
-# kernel launches per step (B3's wrapper launches a per-block pass and the
-# reduction of its partials)
-S2_LAUNCHES = {"fine_raster_fwd": 1, "fine_raster_bwd": 1, "lab_value_grad": 2}
+# kernel launches per step
+S2_LAUNCHES = {"fine_raster_fwd": 1, "fine_raster_bwd": 1, "lab_value_grad": 1}
 S2_LR = 1e-3                      # phase 6: no warm-up and a visible lr
 TOL_B2 = 1e-4                     # d ftab, of its largest magnitude
 TOL_B3_VALUE = 1e-5               # LAB value, relative
@@ -682,10 +703,37 @@ def b2_ops(n):
             + float((nv * n["_sil"]).sum()) * (OPS_SEG + OPS_SEG_BWD))
 
 
-def bound(bytes_moved, ops):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return {"bytes": bytes_moved, "f32_ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+def bound(bytes_moved, ops, sfu_ops=0.0):
+    """The least time for the work: bytes at the HBM rate, f32 operations
+    at the f32 rate, special-function operations at the SFU rate; the
+    largest of the three, and what set it ("operations" for either rate,
+    the unit in bound_unit)."""
+    t = {"bytes": bytes_moved / PEAK_BYTES * 1e3,
+         "f32": ops / PEAK_F32 * 1e3, "sfu": sfu_ops / PEAK_SFU * 1e3}
+    unit = max(t, key=t.get)
+    return {"bytes": bytes_moved, "f32_ops": ops, "sfu_ops": sfu_ops,
+            "bound_ms": t[unit], "bound_unit": unit,
+            "bound_by": "bytes" if unit == "bytes" else "operations"}
+
+
+def lab_ops(pred, gt, no_l=True):
+    """(f32 operations, SFU operations) that B3's arithmetic needs on these
+    inputs (OPS_LAB's derivation): the power and cube-root branches as the
+    data takes them."""
+    from self6dpp_tpu_torch.ops.color import FT, RGB2XYZ, SRGB_T, XYZ_REF
+    ops = pred[..., 0].numel() * (OPS_LAB + (0 if no_l else OPS_LAB_L))
+    sfu = 0
+    for side, rgb in (("pred", pred), ("gt", gt)):
+        powb = rgb > SRGB_T
+        lin = torch.where(powb, ((rgb + 0.055) / 1.055) ** 2.4, rgb / 12.92)
+        xyz = torch.stack([sum(RGB2XYZ[i][j] * lin[..., j] for j in range(3))
+                           / XYZ_REF[i] for i in range(3)], -1)
+        n_pow, n_cube = int(powb.sum()), int((xyz > FT).sum())
+        (pf, ps), (cf, cs) = OPS_LAB_POW[side], OPS_LAB_CUBE[side]
+        ops += (n_pow * pf + (powb.numel() - n_pow)
+                + n_cube * cf + (xyz.numel() - n_cube) * 2)
+        sfu += n_pow * ps + n_cube * cs
+    return float(ops), float(sfu)
 
 
 def check_stage2_kernels(cfg, inputs):
@@ -753,32 +801,80 @@ def check_stage2_kernels(cfg, inputs):
         n["face_rows_read"] * C * 4 + cand.numel() * 4
         + n["occupied_tiles"] * P * (2 + D) * 4 + B * F * C * 4, b2_ops(n)))
 
+    # B3: the normalised entry against its plain version, and the scaled
+    # entry the step calls (one launch each) against its plain twin
+    w = cfg.self_sup.lab_lw
     before = LC.lab_value_grad.launches
     val, grad = LC.lab_value_grad(*lab, True)
     val2, _ = LC.lab_value_grad(*lab, True)
+    sval, g_raw, sscale = LC.lab_value_grad_scaled(*lab, True, w)
     torch.cuda.synchronize()
     require(LC.lab_value_grad.launches
-            == before + 2 * S2_LAUNCHES["lab_value_grad"], "B3 launches")
+            == before + 3 * S2_LAUNCHES["lab_value_grad"], "B3 launches")
     rval, rgrad = LC.lab_value_grad_plain(*lab, True)
-    scale = rgrad.abs().max().item()
+    rsval, rg_raw, rscale = LC.lab_value_grad_scaled_plain(*lab, True, w)
+    # the same chain in float64 (the plain version on float64 copies)
+    fval, fgrad = LC.lab_value_grad_plain(*(x.double() for x in lab), True)
+    scale, ftop = rgrad.abs().max().item(), fgrad.abs().max().item()
     gerr = (grad - rgrad).abs().max().item()
+    g_raw_err = (g_raw - rg_raw).abs().max().item()
     b3 = {"value": val.item(), "plain_value": rval.item(),
           "value_rel_err": abs(val.item() - rval.item()) / abs(rval.item()),
           "grad_max_abs_err": gerr, "grad_err": gerr / scale,
-          "same_bits_twice": bool(torch.equal(val, val2)),
+          "g_raw_err": g_raw_err / rg_raw.abs().max().item(),
+          "scale_rel_err": abs(sscale.item() - rscale.item()) / rscale.item(),
+          # the scaled entry's (the timed call's) outputs
+          "scaled_max_abs_err": max(g_raw_err, abs(sval.item() - rsval.item()),
+                                    abs(sscale.item() - rscale.item())),
+          "value_rel_err_vs_f64": abs(val.item() - fval.item())
+          / abs(fval.item()),
+          "grad_err_vs_f64": (grad.double() - fgrad).abs().max().item() / ftop,
+          "plain_grad_err_vs_f64":
+              (rgrad.double() - fgrad).abs().max().item() / ftop,
+          "same_bits_twice": bool(torch.equal(val, val2)
+                                  and torch.equal(val, sval)),
           "mask_pixels": lab[2].sum().item()}
     require(rval.item() > 0 and scale > 0, "B3: empty LAB input")
     require(b3["same_bits_twice"], "B3 value differs between runs")
-    require(b3["value_rel_err"] <= TOL_B3_VALUE, "B3 value", b3)
-    require(b3["grad_err"] <= TOL_B3_GRAD, "B3 gradient", b3)
-    b3["ms"] = cuda_ms(lambda: LC.lab_value_grad(*lab, True))
-    b3["plain_ms"] = cuda_ms(lambda: LC.lab_value_grad_plain(*lab, True))
-    b3["graph_ms"] = graph_ms(lambda: LC.lab_value_grad(*lab, True))
+    require(b3["value_rel_err"] <= TOL_B3_VALUE
+            and b3["scale_rel_err"] <= TOL_B3_VALUE, "B3 value", b3)
+    require(b3["grad_err"] <= TOL_B3_GRAD and b3["g_raw_err"] <= TOL_B3_GRAD,
+            "B3 gradient", b3)
+    require(b3["value_rel_err_vs_f64"] <= TOL_B3_VALUE
+            and b3["grad_err_vs_f64"] <= TOL_B3_GRAD, "B3 against float64", b3)
+    # timed as the step calls it: the scaled entry, one launch
+    step_call = lambda: LC.lab_value_grad_scaled(*lab, True, w)
+    b3["ms"] = cuda_ms(step_call)
+    b3["plain_ms"] = cuda_ms(lambda: LC.lab_value_grad_scaled_plain(
+        *lab, True, w))
+    b3["graph_ms"] = graph_ms(step_call)
     npix = lab[2].numel()
-    b3.update(bound(npix * (3 + 3 + 1 + 3) * 4, npix * OPS_LAB))
+    b3.update(bound(npix * (3 + 3 + 1 + 3) * 4, *lab_ops(*lab[:2])))
+    b3["graph_ms_parts"] = lab_parts_ms(lab, w)
 
     counts = {k: v for k, v in n.items() if not k.startswith("_")}
     return {"B1": b1, "B2": b2, "B3": b3, "counts": counts}
+
+
+def lab_parts_ms(lab, weight):
+    """Where B3's device time goes (graph_ms): the scaled entry's launch
+    alone (its ticket's memset and the kernel); the normalised call,
+    lab_value_grad with g_raw * scale; and the call as the step makes it,
+    from the launch until the weighted gradient is in the masked render's
+    cotangent (a seeded `ct`: InjectGrad's addcmul)."""
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    pred, gt, mask = lab
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    ct = torch.randn(pred.shape, generator=g).to(pred.device)
+    launch = lambda: LC.lab_value_grad_scaled(pred, gt, mask, True, weight)
+
+    def step_call():
+        _, g_raw, scale = launch()
+        return torch.addcmul(ct, g_raw, scale)
+    return {"launch": graph_ms(launch),
+            "normalised_call": graph_ms(lambda: LC.lab_value_grad(
+                pred, gt, mask, True)),
+            "step_call": graph_ms(step_call)}
 
 
 def raster_parts_ms(fwd_call, bwd_call, saved):
@@ -1173,7 +1269,7 @@ def stage2_kernel_lines(k5, launches, k8, probe_launches):
              * k5["B2"]["loss"]["max_abs"]),
             ("lab_value_grad", "lab_value_grad.cu",
              "self6dpp_tpu/ops/lab_pallas.py:171", "B3", "lab_value_grad",
-             k5["B3"]["grad_max_abs_err"])]
+             k5["B3"]["scaled_max_abs_err"])]
     out = []
     for name, src, replaces, key, count, err in rows:
         d = k5[key]

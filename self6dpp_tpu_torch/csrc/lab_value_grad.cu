@@ -1,31 +1,55 @@
-// LAB loss value and image gradient in one pass.
+// LAB loss value and image gradient in one launch (kernel B3).
 //
 // Replaces the TPU kernel self6dpp_tpu/ops/lab_pallas.py::_kernel (reached
 // through lab_value_grad_pallas, pallas_call in lab_value_grad_pallas). The
 // plain PyTorch version of the same function is
-// self6dpp_tpu_torch/ops/lab_cuda.py::lab_value_grad_plain.
+// self6dpp_tpu_torch/ops/lab_cuda.py::lab_value_grad_scaled_plain.
 //
 // For pred and gt (n pixels x 3, NHWC float32) and a mask (n pixels):
-//   grad[i]   = m_i * d|Lab(pred_i) - Lab(gt_i)|_1 / d pred_i    (a, b; + L)
-//   sums[0]   = sum_i m_i |Lab(pred_i) - Lab(gt_i)|_1,  sums[1] = sum_i m_i
+//   g_raw[i] = m_i * d|Lab(pred_i) - Lab(gt_i)|_1 / d pred_i    (a, b; + L)
+//   out[0]   = sum_i m_i |Lab(pred_i) - Lab(gt_i)|_1 * norm      (the value)
+//   out[1]   = weight * norm,   norm = 1 / (max(sum_i m_i, 1) * n_ch)
+//   out[2]   the call's block ticket (an unsigned counter)
 // through sRGB linearisation -> XYZ -> f(t) (cube root above 0.008856) ->
-// Lab, with the JAX kernel's analytic chain. The normalisation by
-// max(sums[1], 1) * n_ch stays with the caller, as in the JAX package.
+// Lab, with the JAX kernel's analytic chain. The caller folds out[1] into
+// the cotangent add (InjectGrad: ct + g_raw * scale), so the gradient is
+// written once and read once.
 //
-// The Pallas grid runs in order and adds into SMEM scalars; a CUDA grid runs
-// in parallel, so the sums are taken in two launches: each block of the
-// first sums its pixels in a fixed tree (warp shuffles, then the warps in
-// order) into partial[block]; one block of the second sums the partials in
-// a fixed order. No float atomics: the value is the same bitwise from run to
-// run. The cube root is cbrtf (the JAX kernel's exp(log(c)/3) stands in for
-// a cube root Mosaic lacks).
-//
-// What bounds it: 28 bytes read and 12 written per pixel, against ~150 f32
-// operations (two pow, six cbrt, the 3x3 mixes) per pixel; at 8 x 256^2
-// pixels the bytes set the bound (21 MB in ~6 us) only if the ~20
-// transcendental calls a pixel needs keep pace. One thread per pixel with
-// coalesced loads of its three channels; the reduction is a few hundred
-// bytes.
+// What bounds it on an H100: 28 bytes read and 12 written per pixel, 21 MB
+// at 8 x 256^2 pixels, 6.3 us at 3.35 TB/s. The arithmetic comes close:
+// six powers, six cube roots and their derivatives a pixel. Taken with
+// libdevice's powf, each behind its own branch, they cost ~800
+// instructions a pixel in long dependent chains, and the kernel ran at
+// several times the byte bound, bound by issue. The design:
+//   * one launch: each block writes its (sum m |dLab|, sum m) partial,
+//     fences, and takes a ticket on a counter; the block with the last
+//     ticket sums the partials in index order (a fixed tree: the same bits
+//     from run to run, no float atomics) and writes out[0] and out[1]. The
+//     counter is the call's own (out[2]), zeroed on the launch's stream
+//     just before the kernel, so calls on different streams and graph
+//     replays never share a ticket.
+//   * 4 pixels a thread: each warp walks 128-pixel chunks, staging pred and
+//     gt through shared memory with 16-byte loads, neighbouring lanes on
+//     neighbouring 16 bytes, and storing the gradient back the same way;
+//     the mask is one float4 a lane. The next chunk's loads are issued
+//     before the current chunk computes. The grid is 2 blocks an SM (118-126
+//     registers a thread). The last 128 pixels, when n is not a multiple of
+//     128, take a scalar path. The pointers must be 16-byte aligned (the
+//     wrapper checks).
+//   * shared transcendentals, no divergent branch: every power and cube
+//     root starts from the SFU's log2 and exp2 and takes one Newton step
+//     (pow04, cube_root: ~1 ulp, 30 MUFU a pixel instead of libdevice's
+//     sequences); dlin reuses lin's power (t^1.4 = u t with u = t^0.4, no
+//     second power and no division), df reuses f's inverse cube root (1 /
+//     (3 f^2) = s^2 / 3); every constant divisor is a constexpr reciprocal
+//     (XYZ_REF, 1.055, 12.92). Both sides of each branch are computed and
+//     selected, so the compiler interleaves 12 channel chains a thread.
+//     Against the plain version on an H100 (chip_smoke.py phase 5) the
+//     value agrees to the bit and the gradient to 8.4e-7 of its largest
+//     magnitude (the plain version's own error against float64 is 7.9e-7
+//     there, the kernel's 5.7e-7).
+// Built with --fmad=false, as every source here: the multiply-adds are the
+// explicit __fmaf_rn calls.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,145 +57,305 @@
 
 namespace {
 
-constexpr float kEps = 1e-8f;
+constexpr int kThreads = 256;         // 8 warps, 1,024 pixels a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kQuad = 4;              // pixels a thread
+constexpr int kChunk = 32 * kQuad;    // pixels a warp takes at a time
+constexpr int kBlocksPerSm = 2;       // resident blocks the grid is sized to
 constexpr float kFt = 0.008856f;      // f(t) threshold
 constexpr float kSrgbT = 0.04045f;    // sRGB gamma threshold
 constexpr unsigned kFull = 0xffffffffu;
-__constant__ float kM[3][3] = {{0.412453f, 0.357580f, 0.180423f},
-                               {0.212671f, 0.715160f, 0.072169f},
-                               {0.019334f, 0.119193f, 0.950227f}};
-__constant__ float kRef[3] = {0.950456f, 1.0f, 1.088754f};
+constexpr float kM00 = 0.412453f, kM01 = 0.357580f, kM02 = 0.180423f;
+constexpr float kM10 = 0.212671f, kM11 = 0.715160f, kM12 = 0.072169f;
+constexpr float kM20 = 0.019334f, kM21 = 0.119193f, kM22 = 0.950227f;
+constexpr float kInvRef0 = 1.0f / 0.950456f;   // XYZ_REF[1] is 1
+constexpr float kInvRef2 = 1.0f / 1.088754f;
+constexpr float kInv1055 = 1.0f / 1.055f;
+constexpr float kInv1292 = 1.0f / 12.92f;
+constexpr float kF0 = static_cast<float>(16.0 / 116.0);
+constexpr float kDlin = static_cast<float>(2.4 / 1.055);
+constexpr float kThird = static_cast<float>(1.0 / 3.0);
 
-__device__ __forceinline__ float lin(float c) {
-  return c > kSrgbT ? powf((c + 0.055f) / 1.055f, 2.4f) : c / 12.92f;
+// The SFU's estimates (abs error ~2^-22 for log2, ~2 ulp for exp2 and the
+// reciprocal): each power and root below refines them by a Newton step.
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float dlin(float c) {
-  return c > kSrgbT
-             ? static_cast<float>(2.4 / 1.055) * powf((c + 0.055f) / 1.055f, 1.4f)
-             : static_cast<float>(1.0 / 12.92);
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float f_lab(float c) {
-  return c > kFt ? cbrtf(fmaxf(c, kEps))
-                 : 7.787f * c + static_cast<float>(16.0 / 116.0);
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// d cbrt(max(c, eps)) / dc = 1 / (3 cbrt(c)^2) above eps, 0 below
-__device__ __forceinline__ float df_lab(float c) {
-  const float cb = cbrtf(fmaxf(c, kEps));
-  const float dcbrt = c > kEps ? 1.f / (3.f * cb * cb) : 0.f;
-  return c > kFt ? dcbrt : 7.787f;
+// u = t^0.4 for t in [0.0365, 1], so that t^2.4 = u t^2 and t^1.4 = u t:
+// u0 = exp2(0.4 log2 t) is within ~1e-6; one Newton step on u^5 = t^2,
+// u = 0.8 u0 + 0.2 t^2 / u0^4, squares that away and leaves the step's
+// roundings (~1 ulp). Outside that range (the linear branch) the result is
+// unused and may be NaN.
+__device__ __forceinline__ float pow04(float t, float t2) {
+  const float u0 = ex2_approx(lg2_approx(t) * 0.4f);
+  const float u2 = u0 * u0;
+  return __fmaf_rn(0.8f, u0, 0.2f * (t2 * rcp_approx(u2 * u2)));
+}
+
+// c^(1/3) for c above kFt, and s2 = c^(-2/3): s = c^(-1/3) from
+// exp2(-log2(c) / 3) and one Newton step s + s (1 - c s^3) / 3 (no
+// division), then cb = c s^2 and one Newton step on cb, cb + (c - cb^3)
+// s^2 / 3 (~1 ulp). Unused and possibly NaN below kFt.
+__device__ __forceinline__ float cube_root(float c, float& s2) {
+  const float s0 = ex2_approx(lg2_approx(c) * -kThird);
+  const float e = __fmaf_rn(-c, s0 * s0 * s0, 1.f);
+  const float s = __fmaf_rn(s0 * kThird, e, s0);
+  s2 = s * s;
+  const float cb = c * s2;
+  return __fmaf_rn(__fmaf_rn(-cb * cb, cb, c) * kThird, s2, cb);
+}
+
+// sRGB linearisation and its derivative from one power, both branches
+// computed and selected (no divergent branch, so the compiler interleaves
+// the channels and pixels): with t = (c + 0.055) / 1.055, t^2.4 = u t^2
+// and d t^2.4 / dc = (2.4 / 1.055) t^1.4 = (2.4 / 1.055) u t
+__device__ __forceinline__ float lin(float c, float& dlin) {
+  const float t = (c + 0.055f) * kInv1055, t2 = t * t;
+  const float u = pow04(t, t2);
+  const bool hi = c > kSrgbT;
+  dlin = hi ? kDlin * (u * t) : kInv1292;
+  return hi ? u * t2 : c * kInv1292;
+}
+
+// f(t) and its derivative from one cube root: above kFt the JAX kernel's
+// clamp max(c, 1e-8) is c, and d cbrt(c) / dc = 1 / (3 cbrt(c)^2)
+__device__ __forceinline__ float f_lab(float c, float& df) {
+  float s2;
+  const float cb = cube_root(c, s2);
+  const bool hi = c > kFt;
+  df = hi ? kThird * s2 : 7.787f;
+  return hi ? cb : 7.787f * c + kF0;
+}
+
+// a r + b g + c b2, with two fused multiply-adds
+__device__ __forceinline__ float mix(float a, float b, float c, float r,
+                                     float g, float b2) {
+  return __fmaf_rn(c, b2, __fmaf_rn(b, g, a * r));
 }
 
 __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.f) - (x < 0.f));
 }
 
-struct Lab {
-  float x, y, z, L, a, b;
-};
+// One pixel: writes m * d|dLab| / d pred to g[0..2], returns m * |dLab|.
+template <bool kNoL>
+__device__ __forceinline__ float pixel(float pr, float pg, float pb, float gr,
+                                       float gg, float gb, float m,
+                                       float* g) {
+  float dr, dg, db;
+  const float rl = lin(pr, dr), gl = lin(pg, dg), bl = lin(pb, db);
+  const float x = mix(kM00, kM01, kM02, rl, gl, bl) * kInvRef0;
+  const float y = mix(kM10, kM11, kM12, rl, gl, bl);
+  const float z = mix(kM20, kM21, kM22, rl, gl, bl) * kInvRef2;
+  float dfx, dfy, dfz;
+  const float fx = f_lab(x, dfx), fy = f_lab(y, dfy), fz = f_lab(z, dfz);
 
-__device__ __forceinline__ Lab to_lab(float r, float g, float b) {
-  const float rl = lin(r), gl = lin(g), bl = lin(b);
-  Lab o;
-  o.x = (kM[0][0] * rl + kM[0][1] * gl + kM[0][2] * bl) / kRef[0];
-  o.y = (kM[1][0] * rl + kM[1][1] * gl + kM[1][2] * bl) / kRef[1];
-  o.z = (kM[2][0] * rl + kM[2][1] * gl + kM[2][2] * bl) / kRef[2];
-  const float fx = f_lab(o.x), fy = f_lab(o.y), fz = f_lab(o.z);
-  o.L = 116.f * fy - 16.f;
-  o.a = 500.f * (fx - fy);
-  o.b = 200.f * (fy - fz);
-  return o;
+  // gt's side: the derivatives are not needed (the compiler drops them)
+  float unused;
+  const float tr = lin(gr, unused), tg = lin(gg, unused), tb = lin(gb, unused);
+  const float qx = f_lab(mix(kM00, kM01, kM02, tr, tg, tb) * kInvRef0, unused);
+  const float qy = f_lab(mix(kM10, kM11, kM12, tr, tg, tb), unused);
+  const float qz = f_lab(mix(kM20, kM21, kM22, tr, tg, tb) * kInvRef2, unused);
+
+  const float da = 500.f * ((fx - fy) - (qx - qy));
+  const float dbb = 200.f * ((fy - fz) - (qy - qz));
+  float diff = fabsf(da) + fabsf(dbb);
+  const float sa = sgn(da), sb = sgn(dbb);
+  const float ax = 500.f * sa;
+  float ay = -500.f * sa + 200.f * sb;
+  const float az = -200.f * sb;
+  if (!kNoL) {
+    const float dL = 116.f * (fy - qy);
+    diff = diff + fabsf(dL);
+    ay = ay + 116.f * sgn(dL);
+  }
+  const float dx = ax * dfx * kInvRef0;
+  const float dy = ay * dfy;
+  const float dz = az * dfz * kInvRef2;
+  g[0] = mix(kM00, kM10, kM20, dx, dy, dz) * dr * m;
+  g[1] = mix(kM01, kM11, kM21, dx, dy, dz) * dg * m;
+  g[2] = mix(kM02, kM12, kM22, dx, dy, dz) * db * m;
+  return diff * m;
 }
 
-// sum over the block in a fixed order: shuffles within each warp, then the
-// warps' sums in order by warp 0
-__device__ __forceinline__ float block_sum(float v, float* s_warp) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+// (v, m) summed over the block in a fixed order: shuffles within each
+// warp, then the warps' sums in order by warp 0
+__device__ __forceinline__ float2 block_sum(float2 x, float2* s_warp) {
+  for (int o = 16; o > 0; o >>= 1) {
+    x.x += __shfl_down_sync(kFull, x.x, o);
+    x.y += __shfl_down_sync(kFull, x.y, o);
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   __syncthreads();
-  if (lane == 0) s_warp[warp] = v;
+  if (lane == 0) s_warp[warp] = x;
   __syncthreads();
-  float s = 0.f;
+  float2 s = make_float2(0.f, 0.f);
   if (warp == 0) {
-    s = lane < nwarps ? s_warp[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
+    if (lane < kWarps) s = s_warp[lane];
+    for (int o = 16; o > 0; o >>= 1) {
+      s.x += __shfl_down_sync(kFull, s.x, o);
+      s.y += __shfl_down_sync(kFull, s.y, o);
+    }
   }
   return s;                      // valid in thread 0
 }
 
-__global__ void lab_pixels_kernel(const float* __restrict__ pred,
-                                  const float* __restrict__ gt,
-                                  const float* __restrict__ mask,
-                                  float* __restrict__ grad,
-                                  float* __restrict__ partial, int n,
-                                  int no_l) {
-  __shared__ float s_warp[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float v = 0.f, msum = 0.f;
-  if (i < n) {
-    const float pr = pred[3 * i], pg = pred[3 * i + 1], pb = pred[3 * i + 2];
-    const float m = mask[i];
-    const Lab p = to_lab(pr, pg, pb);
-    const Lab g = to_lab(gt[3 * i], gt[3 * i + 1], gt[3 * i + 2]);
-    float diff = fabsf(p.a - g.a) + fabsf(p.b - g.b);
-    const float sa = sgn(p.a - g.a), sb = sgn(p.b - g.b);
-    const float dfx = 500.f * sa;
-    float dfy = -500.f * sa + 200.f * sb;
-    const float dfz = -200.f * sb;
-    if (!no_l) {
-      diff = diff + fabsf(p.L - g.L);
-      dfy = dfy + 116.f * sgn(p.L - g.L);
-    }
-    const float dx = dfx * df_lab(p.x) / kRef[0];
-    const float dy = dfy * df_lab(p.y) / kRef[1];
-    const float dz = dfz * df_lab(p.z) / kRef[2];
-    grad[3 * i] = (dx * kM[0][0] + dy * kM[1][0] + dz * kM[2][0]) * dlin(pr) * m;
-    grad[3 * i + 1] = (dx * kM[0][1] + dy * kM[1][1] + dz * kM[2][1]) * dlin(pg) * m;
-    grad[3 * i + 2] = (dx * kM[0][2] + dy * kM[1][2] + dz * kM[2][2]) * dlin(pb) * m;
-    v = diff * m;
-    msum = m;
+// One chunk's loads: 128 pixels' pred and gt (3 float4 a lane each, the
+// warp's 1,536 bytes in order) and the mask (one float4 a lane).
+struct Chunk {
+  float4 p[3], g[3], m;
+};
+
+__device__ __forceinline__ void load_chunk(Chunk& c, const float* pred,
+                                           const float* gt, const float* mask,
+                                           int chunk, int lane) {
+  const float4* p4 = reinterpret_cast<const float4*>(pred) + 96 * chunk;
+  const float4* g4 = reinterpret_cast<const float4*>(gt) + 96 * chunk;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c.p[k] = __ldg(p4 + k * 32 + lane);
+    c.g[k] = __ldg(g4 + k * 32 + lane);
   }
-  const float bv = block_sum(v, s_warp);
-  const float bm = block_sum(msum, s_warp);
-  if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = bv;
-    partial[2 * blockIdx.x + 1] = bm;
-  }
+  c.m = __ldg(reinterpret_cast<const float4*>(mask) + 32 * chunk + lane);
 }
 
-__global__ void lab_reduce_kernel(const float* __restrict__ partial,
-                                  int nblocks, float* __restrict__ sums) {
-  __shared__ float s_warp[32];
-  float v = 0.f, m = 0.f;
-  for (int j = threadIdx.x; j < nblocks; j += blockDim.x) {
-    v += partial[2 * j];
-    m += partial[2 * j + 1];
+template <bool kNoL>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+lab_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
+           const float* __restrict__ mask, float* __restrict__ grad,
+           float* __restrict__ partial, float* __restrict__ out, int n,
+           float weight) {
+  // per warp: 96 float4 of pred (then of the gradient) and 96 of gt
+  __shared__ float4 s_p[kWarps][96];
+  __shared__ float4 s_g[kWarps][96];
+  __shared__ float2 s_warp[kWarps];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kWarps + warp, stride = gridDim.x * kWarps;
+  const int nfull = n / kChunk;           // chunks of 128 pixels inside n
+  float v = 0.f, msum = 0.f;
+
+  // each warp walks its chunks; the next chunk's loads are issued once the
+  // current chunk's data is in shared memory, so they are in flight while
+  // it computes
+  Chunk c;
+  if (first < nfull) load_chunk(c, pred, gt, mask, first, lane);
+  for (int ch = first; ch < nfull; ch += stride) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      s_p[warp][k * 32 + lane] = c.p[k];
+      s_g[warp][k * 32 + lane] = c.g[k];
+    }
+    const float m[4] = {c.m.x, c.m.y, c.m.z, c.m.w};
+    __syncwarp();
+    if (ch + stride < nfull)
+      load_chunk(c, pred, gt, mask, ch + stride, lane);
+    // this lane's 4 pixels: 12 floats at 48-byte steps (conflict-free)
+    float p[12], t[12], g[12];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float4 a = s_p[warp][3 * lane + j], b = s_g[warp][3 * lane + j];
+      p[4 * j] = a.x; p[4 * j + 1] = a.y; p[4 * j + 2] = a.z; p[4 * j + 3] = a.w;
+      t[4 * j] = b.x; t[4 * j + 1] = b.y; t[4 * j + 2] = b.z; t[4 * j + 3] = b.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kQuad; ++i) {
+      v += pixel<kNoL>(p[3 * i], p[3 * i + 1], p[3 * i + 2], t[3 * i],
+                       t[3 * i + 1], t[3 * i + 2], m[i], g + 3 * i);
+      msum += m[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      s_p[warp][3 * lane + j] =
+          make_float4(g[4 * j], g[4 * j + 1], g[4 * j + 2], g[4 * j + 3]);
+    __syncwarp();
+    float4* o4 = reinterpret_cast<float4*>(grad) + 96 * ch;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o4[k * 32 + lane] = s_p[warp][k * 32 + lane];
+    __syncwarp();
   }
-  const float bv = block_sum(v, s_warp);
-  const float bm = block_sum(m, s_warp);
+  if (nfull * kChunk < n && first == nfull % stride) {
+    // the ragged end (n not a multiple of 128): pixel by pixel, 4 a lane
+    const int q = nfull * 32 + lane;
+    for (int i = 0; i < kQuad; ++i) {
+      const int px = q * kQuad + i;
+      if (px >= n) break;
+      const float mi = mask[px];
+      float g[3];
+      v += pixel<kNoL>(pred[3 * px], pred[3 * px + 1], pred[3 * px + 2],
+                       gt[3 * px], gt[3 * px + 1], gt[3 * px + 2], mi, g);
+      msum += mi;
+      grad[3 * px] = g[0];
+      grad[3 * px + 1] = g[1];
+      grad[3 * px + 2] = g[2];
+    }
+  }
+
+  const float2 bs = block_sum(make_float2(v, msum), s_warp);
   if (threadIdx.x == 0) {
-    sums[0] = bv;
-    sums[1] = bm;
+    reinterpret_cast<float2*>(partial)[blockIdx.x] = bs;
+    __threadfence();                       // the partial before the ticket
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(out + 2), 1u)
+             == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();                         // every partial after the ticket
+  float2 t = make_float2(0.f, 0.f);
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads) {
+    const float2 x = __ldcg(reinterpret_cast<const float2*>(partial) + j);
+    t.x += x.x;
+    t.y += x.y;
+  }
+  const float2 s = block_sum(t, s_warp);
+  if (threadIdx.x == 0) {
+    const float norm = 1.f / (fmaxf(s.y, 1.f) * (kNoL ? 2.f : 3.f));
+    out[0] = s.x * norm;
+    out[1] = weight * norm;
   }
 }
 
 }  // namespace
 
-// n pixels in blocks of 256 threads (nblocks = ceil(n / 256)), then one block
-// of 1024 threads for the partials, both on `stream`. Returns
-// cudaGetLastError() after the launches.
+// n pixels in 128-pixel chunks, which the warps of min(ceil(n / 1024), 2 x
+// the SM count) blocks of 256 threads walk, one launch on `stream` (on the
+// current device) after a 4-byte memset of its ticket. partial holds 2 *
+// ceil(n / 1024) floats (8-byte aligned), out 3 words. Returns the CUDA
+// error of the memset or the launch (0 on success).
 extern "C" int lab_value_grad(const float* pred, const float* gt,
                               const float* mask, float* grad, float* partial,
-                              float* sums, int n, int nblocks, int no_l,
+                              float* out, int n, int no_l, float weight,
                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lab_pixels_kernel<<<nblocks, 256, 0, s>>>(pred, gt, mask, grad, partial, n,
-                                            no_l);
-  cudaError_t e = cudaGetLastError();
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) e = cudaMemsetAsync(out + 2, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  lab_reduce_kernel<<<1, 1024, 0, s>>>(partial, nblocks, sums);
+  const int per_block = kWarps * kChunk;
+  int nblocks = (n + per_block - 1) / per_block;
+  if (nblocks > kBlocksPerSm * sms) nblocks = kBlocksPerSm * sms;
+  if (no_l)
+    lab_kernel<true><<<nblocks, kThreads, 0, s>>>(pred, gt, mask, grad,
+                                                  partial, out, n, weight);
+  else
+    lab_kernel<false><<<nblocks, kThreads, 0, s>>>(pred, gt, mask, grad,
+                                                   partial, out, n, weight);
   return static_cast<int>(cudaGetLastError());
 }

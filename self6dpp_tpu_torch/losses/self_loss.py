@@ -24,7 +24,7 @@ from ..config import SelfSupConfig
 from ..ops.chamfer import chamfer_loss
 from ..ops.color import lab_loss
 from ..ops.geometry import backproject_depth
-from ..ops.lab_cuda import lab_value_grad, lab_value_grad_plain
+from ..ops.lab_cuda import lab_value_grad_scaled, lab_value_grad_scaled_plain
 from ..ops.ssim import ms_ssim
 from .mask_losses import weighted_ex_loss_probs
 from .pm_loss import pm_loss
@@ -36,19 +36,22 @@ _MAX_DEPTH_POINTS = 2048
 
 
 class InjectGrad(torch.autograd.Function):
-    """Identity on x whose backward adds g to x's cotangent. As in the JAX
-    package, g reaches the graph only if something downstream consumes the
-    output: an unused output has no cotangent to add to."""
+    """Identity on x whose backward adds g, or g * scale with a 0-d scale,
+    to x's cotangent in one elementwise pass. As in the JAX package, g
+    reaches the graph only if something downstream consumes the output: an
+    unused output has no cotangent to add to."""
 
     @staticmethod
-    def forward(ctx, x, g):
-        ctx.save_for_backward(g)
+    def forward(ctx, x, g, scale=None):
+        ctx.save_for_backward(g, scale)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, ct):
-        (g,) = ctx.saved_tensors
-        return ct + g, None
+        g, scale = ctx.saved_tensors
+        if scale is None:
+            return ct + g, None, None
+        return torch.addcmul(ct, g, scale), None, None
 
 
 def mask_dilate(mask: Tensor, k: int) -> Tensor:
@@ -126,10 +129,15 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
         loss["loss_color_ab_obj"] = torch.as_tensor(
             lab_val, dtype=ren_m.dtype, device=ren_m.device)
     elif cfg.lab_lw > 0 and cfg.lab_impl == "pallas":
-        fn = lab_value_grad if impl == "kernel" else lab_value_grad_plain
-        lab_val, lab_g = fn(ren_m.detach(), img_m.detach(), pseudo_vis.detach(),
-                            cfg.lab_no_l)
-        ren_m = InjectGrad.apply(ren_m, cfg.lab_lw * lab_g)
+        # B3 returns the gradient unnormalised and the 0-d scale lab_lw /
+        # (max(sum(mask), 1) * n_ch): InjectGrad adds g_raw * scale to the
+        # cotangent in one pass (the JAX package injects lab_lw * g)
+        fn = (lab_value_grad_scaled if impl == "kernel"
+              else lab_value_grad_scaled_plain)
+        lab_val, g_raw, scale = fn(ren_m.detach(), img_m.detach(),
+                                   pseudo_vis.detach(), cfg.lab_no_l,
+                                   cfg.lab_lw)
+        ren_m = InjectGrad.apply(ren_m, g_raw, scale)
         loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
 
     if cfg.perceptual_lw > 0 and lpips_fn is not None:

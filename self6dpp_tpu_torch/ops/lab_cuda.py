@@ -1,4 +1,4 @@
-"""LAB loss value and image gradient in one pass: the CUDA kernel
+"""LAB loss value and image gradient in one launch: the CUDA kernel
 csrc/lab_value_grad.cu (kernel B3) and its plain PyTorch version.
 
 The kernel replaces the TPU kernel B3, self6dpp_tpu/ops/lab_pallas.py::
@@ -7,9 +7,16 @@ gt (B, S, S, 3) NHWC float32 and a mask (B, S, S):
   the masked L1 on Lab a, b (+ L when no_l is False) and its analytic
   gradient d/d(pred) through the sRGB linearisation, XYZ, f(t) (cube root
   branch) and Lab, both divided by max(sum(mask), 1) * n_ch,
-the value of ops/color.py::lab_loss and its gradient. The stage-II step
-injects the gradient into the render's cotangent (losses/self_loss.py::
-InjectGrad), as the JAX package does.
+the value of ops/color.py::lab_loss and its gradient. Two entries, each
+with its plain twin:
+  lab_value_grad(_plain)         -> (value, gradient), normalised, as the
+                                    JAX function returns them;
+  lab_value_grad_scaled(_plain)  -> (value, g_raw, scale): the gradient
+                                    before normalisation and the 0-d scale
+                                    weight / (max(sum(mask), 1) * n_ch).
+The stage-II step takes the scaled entry and adds g_raw * scale into the
+render's cotangent in one pass (losses/self_loss.py::InjectGrad), where the
+JAX package injects lab_lw * g.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from torch import Tensor
 from .color import FT, RGB2XYZ, SRGB_T, XYZ_REF
 
 _EPS = 1e-8
-_BLOCK = 256            # threads (pixels) per block of the first pass
+_PIXELS_PER_BLOCK = 1024    # csrc/lab_value_grad.cu: 8 warps x 128 pixels
 
 
 def _split_lab_grad(p: Tensor, g: Tensor, no_l: bool) -> tuple[Tensor, Tensor]:
@@ -74,13 +81,23 @@ def _split_lab_grad(p: Tensor, g: Tensor, no_l: bool) -> tuple[Tensor, Tensor]:
     return diff, grad
 
 
-def lab_value_grad_plain(pred: Tensor, gt: Tensor, mask: Tensor,
-                         no_l: bool = True) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of kernel B3: (value, d value / d pred)."""
+def lab_value_grad_scaled_plain(pred: Tensor, gt: Tensor, mask: Tensor,
+                                no_l: bool = True, weight: float = 1.0
+                                ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of kernel B3: (value, g_raw, scale), where g_raw
+    is the masked gradient before normalisation and scale = weight / (max(
+    sum(mask), 1) * n_ch), so that g_raw * scale is weight * d value / d pred."""
     diff, grad = _split_lab_grad(pred, gt, no_l)
     n_ch = 2 if no_l else 3
     norm = 1.0 / (mask.sum().clamp_min(1.0) * n_ch)
-    return (diff * mask).sum() * norm, grad * mask[..., None] * norm
+    return (diff * mask).sum() * norm, grad * mask[..., None], weight * norm
+
+
+def lab_value_grad_plain(pred: Tensor, gt: Tensor, mask: Tensor,
+                         no_l: bool = True) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of lab_value_grad: (value, d value / d pred)."""
+    value, g_raw, scale = lab_value_grad_scaled_plain(pred, gt, mask, no_l)
+    return value, g_raw * scale
 
 
 @functools.cache
@@ -88,19 +105,22 @@ def _lib() -> ctypes.CDLL:
     from ..kernels import build
     lib = build.load("lab_value_grad")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lab_value_grad.argtypes = [p] * 6 + [i, i, i, p]
+    lib.lab_value_grad.argtypes = [p] * 6 + [i, i, ctypes.c_float, p]
     lib.lab_value_grad.restype = i
     return lib
 
 
-def lab_value_grad(pred: Tensor, gt: Tensor, mask: Tensor,
-                   no_l: bool = True) -> tuple[Tensor, Tensor]:
-    """(value, gradient): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. The value is a 0-d tensor on the device (no
-    host round trip). `lab_value_grad.launches` counts kernel launches,
-    two per call (the per-block pass and the reduction of its partials)."""
+def lab_value_grad_scaled(pred: Tensor, gt: Tensor, mask: Tensor,
+                          no_l: bool = True, weight: float = 1.0
+                          ) -> tuple[Tensor, Tensor, Tensor]:
+    """(value, g_raw, scale) as lab_value_grad_scaled_plain computes them:
+    the CUDA kernel for CUDA tensors (one launch after a 4-byte memset of
+    the call's own block ticket, so calls on any streams and CUDA-graph
+    replays are independent; value and scale are 0-d tensors on the
+    device, no host round trip), the plain version for CPU tensors.
+    `lab_value_grad.launches` counts the launches."""
     if all(x.device.type == "cpu" for x in (pred, gt, mask)):
-        return lab_value_grad_plain(pred, gt, mask, no_l)
+        return lab_value_grad_scaled_plain(pred, gt, mask, no_l, weight)
     if pred.device.type != "cuda" or gt.device != pred.device \
             or mask.device != pred.device:
         raise ValueError("pred, gt and mask must lie on one CUDA device "
@@ -113,23 +133,38 @@ def lab_value_grad(pred: Tensor, gt: Tensor, mask: Tensor,
                          f"{tuple(pred.shape)}, {tuple(gt.shape)}, "
                          f"{tuple(mask.shape)}")
     pred, gt, mask = pred.contiguous(), gt.contiguous(), mask.contiguous()
+    if any(x.data_ptr() % 16 for x in (pred, gt, mask)):
+        raise ValueError("lab_value_grad reads pred, gt and mask as float4: "
+                         "each must start on a 16-byte boundary")
     n = mask.numel()
-    nblocks = -(-n // _BLOCK)
     grad = torch.empty_like(pred)
-    partial = torch.empty((nblocks, 2), dtype=torch.float32, device=pred.device)
-    sums = torch.empty(2, dtype=torch.float32, device=pred.device)
+    # room for a partial per block: the kernel launches at most one block
+    # per 1,024 pixels (fewer on a large input: 2 an SM)
+    partial = torch.empty((-(-n // _PIXELS_PER_BLOCK), 2),
+                          dtype=torch.float32, device=pred.device)
+    # value, scale and the launch's block ticket (zeroed by the C function
+    # on the stream, before the kernel)
+    out = torch.empty(3, dtype=torch.float32, device=pred.device)
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream(pred.device).cuda_stream
-        err = _lib().lab_value_grad(pred.data_ptr(), gt.data_ptr(),
-                                    mask.data_ptr(), grad.data_ptr(),
-                                    partial.data_ptr(), sums.data_ptr(), n,
-                                    nblocks, int(no_l), stream)
+        err = _lib().lab_value_grad(
+            pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), grad.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n, int(no_l), float(weight),
+            stream)
     if err != 0:
         raise RuntimeError(f"lab_value_grad launch failed: CUDA error {err}")
-    lab_value_grad.launches += 2        # lab_pixels_kernel, lab_reduce_kernel
-    n_ch = 2 if no_l else 3
-    norm = 1.0 / (sums[1].clamp_min(1.0) * n_ch)
-    return sums[0] * norm, grad * norm
+    lab_value_grad.launches += 1
+    return out[0], grad, out[1]
+
+
+def lab_value_grad(pred: Tensor, gt: Tensor, mask: Tensor,
+                   no_l: bool = True) -> tuple[Tensor, Tensor]:
+    """(value, d value / d pred), as the JAX package's lab_value_grad_pallas
+    returns them: lab_value_grad_scaled with weight 1, its gradient
+    multiplied by the scale (one more pass over it; the stage-II step takes
+    the scaled entry and folds the scale into its cotangent add instead)."""
+    value, g_raw, scale = lab_value_grad_scaled(pred, gt, mask, no_l)
+    return value, g_raw * scale
 
 
 lab_value_grad.launches = 0

@@ -215,25 +215,31 @@ def test_rasterize_batch_gradient_through_kernels(cuda_device):
                                    atol=1e-4 * b.abs().max().item(), msg=name)
 
 
+def _lab_inputs(dev, b, s, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pred = torch.rand((b, s, s, 3), generator=g).to(dev)
+    gt = torch.rand((b, s, s, 3), generator=g).to(dev)
+    mask = (torch.rand((b, s, s), generator=g) > 0.4).float().to(dev)
+    return pred, gt, mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,no_l,empty", [(2, 64, True, False),
                                             (3, 37, False, False),
                                             (2, 16, True, True)])
 def test_lab_value_grad_matches_plain(cuda_device, b, s, no_l, empty):
     """Kernel B3 against lab_value_grad_plain: value rtol 1e-5, gradient
-    within 1e-6 of its largest magnitude (cbrtf against torch's pow); the
-    value is the same bitwise from run to run (no float atomics)."""
-    g = torch.Generator(device="cpu").manual_seed(b * 100 + s)
-    pred = torch.rand((b, s, s, 3), generator=g).to(cuda_device)
-    gt = torch.rand((b, s, s, 3), generator=g).to(cuda_device)
-    mask = (torch.rand((b, s, s), generator=g) > 0.4).float().to(cuda_device)
+    within 1e-6 of its largest magnitude (Newton-refined roots against
+    torch's pow); the value is the same bitwise from run to run (no float
+    atomics)."""
+    pred, gt, mask = _lab_inputs(cuda_device, b, s, b * 100 + s)
     if empty:
         mask.zero_()
     before = LC.lab_value_grad.launches
     val, grad = LC.lab_value_grad(pred, gt, mask, no_l)
     val2, _ = LC.lab_value_grad(pred, gt, mask, no_l)
     torch.cuda.synchronize()
-    assert LC.lab_value_grad.launches == before + 4   # two kernels per call
+    assert LC.lab_value_grad.launches == before + 2   # one launch per call
     assert torch.equal(val, val2)
     rv, rg = LC.lab_value_grad_plain(pred, gt, mask, no_l)
     torch.testing.assert_close(val, rv, rtol=1e-5, atol=0)
@@ -255,6 +261,113 @@ def test_lab_value_grad_rejects_bad_inputs(cuda_device):
         LC.lab_value_grad(x, x.cpu(), m)
     with pytest.raises(ValueError, match="need pred"):
         LC.lab_value_grad(x, x, m[:, :4])
+    # a view that starts one float into its storage: not 16-byte aligned
+    buf = torch.rand(2 * 8 * 8 * 3 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        LC.lab_value_grad_scaled(buf[1:].view(2, 8, 8, 3), x, m)
+    mbuf = torch.ones(2 * 8 * 8 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        LC.lab_value_grad(x, x, mbuf[1:].view(2, 8, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,no_l,empty", [(3, 7, True, False),
+                                            (2, 45, False, False),
+                                            (8, 256, True, False),
+                                            (3, 7, False, True)])
+def test_lab_value_grad_scaled_one_launch_and_replays(cuda_device, b, s,
+                                                      no_l, empty):
+    """The scaled entry: one launch per call; (value, g_raw, scale) against
+    lab_value_grad_scaled_plain (value and scale rtol 1e-5, g_raw within
+    1e-6 of its largest magnitude) on ragged pixel counts (3 x 7^2 = 147,
+    2 x 45^2 = 4,050: not multiples of 4 or of a warp's 128 pixels), the
+    step's size and an all-zero mask; the value and scale the same bits over
+    repeated calls and over 10 CUDA-graph replays (each launch zeroes its
+    own block ticket)."""
+    pred, gt, mask = _lab_inputs(cuda_device, b, s, b * 100 + s)
+    if empty:
+        mask.zero_()
+    before = LC.lab_value_grad.launches
+    v, g_raw, scale = LC.lab_value_grad_scaled(pred, gt, mask, no_l, 0.2)
+    torch.cuda.synchronize()
+    assert LC.lab_value_grad.launches == before + 1
+    rv, rg, rs = LC.lab_value_grad_scaled_plain(pred, gt, mask, no_l, 0.2)
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(scale, rs, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_raw, rg, rtol=1e-5,
+                               atol=1e-6 * rg.abs().max().item())
+    if empty:
+        assert v.item() == 0 and not g_raw.any() and scale.item() > 0
+    for _ in range(3):
+        v2, g2, s2 = LC.lab_value_grad_scaled(pred, gt, mask, no_l, 0.2)
+        assert torch.equal(v2, v) and torch.equal(s2, scale)
+        assert torch.equal(g2, g_raw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        LC.lab_value_grad_scaled(pred, gt, mask, no_l, 0.2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = LC.lab_value_grad_scaled(pred, gt, mask, no_l, 0.2)
+    for _ in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], v) and torch.equal(out[2], scale)
+        assert torch.equal(out[1], g_raw)
+
+
+@pytest.mark.cuda
+def test_lab_value_grad_scaled_on_two_streams(cuda_device):
+    """Launches that run side by side on two streams, eager and as two CUDA
+    graphs replayed together, give the same bits as one at a time: no two
+    launches share a block ticket. Both streams wait for one sleep on the
+    card (~50 ms) while their launches queue up, then start together; the
+    two inputs are of one size (2 x 64^2 pixels: grids of 8 blocks, which
+    fit on the card together), so the streams' launches stay in step and
+    take their tickets at the same moments."""
+    sets = [_lab_inputs(cuda_device, 2, 64, 1), _lab_inputs(cuda_device, 2, 64, 2)]
+    ref = [LC.lab_value_grad_scaled(*x, True, 0.2) for x in sets]
+    torch.cuda.synchronize()
+    gate, streams = torch.cuda.Stream(), [torch.cuda.Stream(), torch.cuda.Stream()]
+
+    def hold():
+        """Both streams wait for a sleep on the gate stream."""
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(100_000_000)
+            done = torch.cuda.Event()
+            done.record()
+        for st in streams:
+            st.wait_event(done)
+
+    def check(outs):
+        torch.cuda.synchronize()
+        for k in range(2):
+            for v, g_raw, scale in outs[k]:
+                assert torch.equal(v, ref[k][0])
+                assert torch.equal(scale, ref[k][2])
+                assert torch.equal(g_raw, ref[k][1])
+
+    outs = [[], []]
+    hold()
+    for _ in range(100):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(LC.lab_value_grad_scaled(*sets[k], True, 0.2))
+    check(outs)
+    graphs, gouts = [], [[], []]
+    for k, x in enumerate(sets):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(50):
+                gouts[k].append(LC.lab_value_grad_scaled(*x, True, 0.2))
+        graphs.append(graph)
+    for _ in range(3):
+        hold()
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+        check(gouts)
 
 
 def sign_inputs(dev, b, n, seed):
