@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one CUDA card, over its two paths:
+"""Smoke run of the PyTorch/CUDA port on one CUDA card, over its paths:
 
   * DeepIM render-and-compare refinement at lm_flownet width (FlowNetS,
     512x512 zoom, 8 ROIs, 13 classes, 4 iterations, 5120-face meshes,
@@ -8,7 +8,13 @@
     with resnest50d, 256² ROI, 64² output, 13 classes, 8 ROIs, 1280-face
     icospheres, 32 px tiles with K = 128, bf16 compute, the whole loss suite
     with LPIPS, MS-SSIM and depth chamfer, Ranger, EMA), and the LAB opaque
-    probe on it.
+    probe on it;
+  * the stage-I GDR-Net train step at gdrn_flagship (bench.py's
+    bench_gdrn_train: resnest50d, 256² -> 64², 13 classes, BN in train
+    mode, 24 images, bf16) and at gdrn_lm_masknormvf;
+  * the stage-II pose step of the MaskNormVF variant (stage2_masknormvf:
+    vf/norm heads and pseudo labels, the normal map rendered through B1),
+    and the geo-mode and synsup steps at stage2_pose_flagship widths.
 
     python3 chip_smoke.py
 
@@ -42,7 +48,21 @@ exits non-zero):
      on the step's masked render and image and on a seeded input with ties,
      NaN and -0.0, and time both;
   9. run the LAB opaque probe (A, J, J2, A', taking turns step by step) on
-     the bf16 step, with one launch of P1 per J step and of P2 per J2 step.
+     the bf16 step, with one launch of P1 per J step and of P2 per J2 step;
+ 10. run two float32 stage-I steps of masknormvf_tiny on the card and on
+     the CPU (losses, parameters and BN running statistics agree), then
+     time bf16 stage-I steps at gdrn_flagship (ms per step, images/s, CUDA
+     event phases, peak memory; no kernel launched; BN statistics moved)
+     and two at gdrn_lm_masknormvf (its vf/norm terms finite);
+ 11. hold B1 at the normal-map pseudo label's shape against its plain
+     version (mask and face_id bit for bit; candidates depth-sorted; filled
+     slots and overlapping faces per tile beside K), run two float32
+     MaskNormVF pose steps through the kernels and two through the plain
+     versions (phase 6's checks, with loss_vf and loss_norm), and time bf16
+     steps with two B1, one B2 and one B3 launch each (one B1 from the
+     normal render);
+ 12. time the geo-mode and synsup steps at stage2_pose_flagship widths: no
+     kernel launched, every loss finite.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -1023,11 +1043,11 @@ def check_stage2_fp32(cfg32, device, batch_size, built):
 def timed_steps(step, state, batch, steps):
     """`steps` steps (host clock around each, ending in a synchronize) with
     CUDA events at the step's phase boundaries: (times, phases, metrics)."""
-    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.gdrn_engine import event_marker
     times, phases, metrics = [], [], []
     for _ in range(steps):
         marks = []
-        mark = se.event_marker(marks)
+        mark = event_marker(marks)
         t0 = time.perf_counter()
         mark("start")
         state, m = step(state, batch, mark)
@@ -1074,6 +1094,22 @@ def loss_parts_ms(cfg, state, batch, lpips):
                                reps=4)}
 
 
+def kernel_launches():
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    return {"fine_raster_fwd": RC.fine_raster.launches,
+            "fine_raster_bwd": RC.fine_raster_bwd.launches,
+            "lab_value_grad": LC.lab_value_grad.launches}
+
+
+def zero_kernel_launches():
+    from self6dpp_tpu_torch.ops import lab_cuda as LC
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    RC.fine_raster.launches = 0
+    RC.fine_raster_bwd.launches = 0
+    LC.lab_value_grad.launches = 0
+
+
 def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
                 partial_steps=S2_PARTIAL_STEPS):
     """Phase 7: stage-II steps in the configured compute dtype. One
@@ -1084,8 +1120,6 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
     `partial_steps` steps of the partial step (S2_PARTIAL at weight 0) from
     the same weights, timed the same way."""
     from self6dpp_tpu_torch.engine import self_engine as se
-    from self6dpp_tpu_torch.ops import lab_cuda as LC
-    from self6dpp_tpu_torch.ops import raster_cuda as RC
     model, state, batch, lpips = se.build_stage2(cfg, batch_size, device,
                                                  seed=SEED)
     step = se.make_self_train_step(cfg, model, lpips)
@@ -1096,15 +1130,11 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
     require(bf16_err <= TOL_S2_BF16, "bf16 vs fp32 losses", warm, ref32)
 
     torch.cuda.reset_peak_memory_stats()
-    RC.fine_raster.launches = 0
-    RC.fine_raster_bwd.launches = 0
-    LC.lab_value_grad.launches = 0
+    zero_kernel_launches()
     with scatter_counted() as scatters:
         times, phases, metrics = timed_steps(step, state, batch, steps)
     require(scatters["n"] == 0, "the step's B2 ran the scatter", scatters)
-    launches = {"fine_raster_fwd": RC.fine_raster.launches,
-                "fine_raster_bwd": RC.fine_raster_bwd.launches,
-                "lab_value_grad": LC.lab_value_grad.launches}
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name, k in launches.items():
         require(k == S2_LAUNCHES[name] * steps, "launches per step", name, k,
@@ -1294,6 +1324,285 @@ def stage2_kernel_lines(k5, launches, k8, probe_launches):
     return out
 
 
+# ---- stage I, the MaskNormVF pose step, geo and synsup (phases 10-12) ----
+
+S1_BATCH = 24                     # bench.py::bench_gdrn_train's batch
+S1_TIMED_STEPS = 20               # bf16 stage-I steps after one warm-up
+S1_VF_STEPS = 2                   # timed steps at gdrn_lm_masknormvf
+TOL_S1_LOSS = 1e-4                # fp32 card vs CPU losses, relative
+TOL_S1_PARAMS = 1e-4              # fp32 card vs CPU params and BN stats
+S3_TIMED_STEPS = 10               # bf16 MaskNormVF pose steps
+# kernel launches per MaskNormVF pose step: the student render and the
+# normal-map pseudo label (B1), the render's backward (B2), LAB (B3)
+S3_LAUNCHES = {"fine_raster_fwd": 2, "fine_raster_bwd": 1,
+               "lab_value_grad": 1}
+GEO_TIMED_STEPS = 10              # each of the geo and synsup steps
+
+
+def bn_stats_of(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def run_stage1(cfg, device, steps):
+    """`steps` stage-I steps from the seeded weights on batches of seeds 0
+    and 1 in turn: (initial params, initial BN stats, losses per step,
+    final params, final BN stats), all on the CPU."""
+    from self6dpp_tpu_torch.data.synthetic import make_gdrn_batch
+    from self6dpp_tpu_torch.engine import gdrn_engine as ge
+    from self6dpp_tpu_torch.engine.deepim_engine import to_device
+    model = ge.build_gdrn(cfg, device=device, seed=SEED)
+    state = ge.init_state(cfg, model)
+    step = ge.make_train_step(cfg, model)
+    batches = [to_device(make_gdrn_batch(cfg, cfg.solver.ims_per_batch,
+                                         seed=s), device) for s in (0, 1)]
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    init, init_bn = cpu(params_of(model)), cpu(bn_stats_of(model))
+    metrics = []
+    for i in range(steps):
+        state, m = step(state, batches[i % 2])
+        metrics.append({k: float(v) for k, v in m.items()})
+    return init, init_bn, metrics, cpu(params_of(model)), cpu(bn_stats_of(model))
+
+
+def check_stage1_card_vs_cpu(device):
+    """Phase 10, first part: two float32 stage-I steps of
+    config.masknormvf_tiny (BN in train mode, the vf/norm terms) on the
+    card (TF32 off, cuDNN deterministic) and on the CPU (one thread): losses
+    within TOL_S1_LOSS, parameters and BN running statistics within
+    TOL_S1_PARAMS; the statistics and parameters moved past 10x it."""
+    from self6dpp_tpu_torch.config import masknormvf_tiny
+    cfg = masknormvf_tiny()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        init, init_bn, mg, pg, bg = run_stage1(cfg, device, 2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, _, mc, pc, bc = run_stage1(cfg, torch.device("cpu"), 2)
+    finally:
+        torch.set_num_threads(threads)
+    out = {"config": cfg.exp_name, "losses_card": mg, "losses_cpu": mc,
+           "loss_rel_err": max(loss_err(a, b) for a, b in zip(mg, mc)),
+           "params_card_vs_cpu_max_abs": max_abs_diff(pg, pc),
+           "bn_stats_card_vs_cpu_max_abs": max_abs_diff(bg, bc),
+           "params_moved_max_abs": max_abs_diff(pg, init),
+           "bn_stats_moved_max_abs": max_abs_diff(bg, init_bn)}
+    require({"loss_vf_vis", "loss_vf_full", "loss_norm"} <= set(mg[0]),
+            "stage-I vf/norm terms", sorted(mg[0]))
+    require(out["loss_rel_err"] <= TOL_S1_LOSS, "stage-I fp32 losses", out)
+    require(out["params_card_vs_cpu_max_abs"] <= TOL_S1_PARAMS
+            and out["bn_stats_card_vs_cpu_max_abs"] <= TOL_S1_PARAMS,
+            "stage-I fp32 params / BN stats", out)
+    require(out["params_moved_max_abs"] > 10 * TOL_S1_PARAMS
+            and out["bn_stats_moved_max_abs"] > 10 * TOL_S1_PARAMS,
+            "stage-I steps left params or BN stats where they were", out)
+    return out
+
+
+def time_stage1(cfg, device, batch_size, steps):
+    """Phase 10: stage-I steps at `cfg` in its compute dtype on one seeded
+    batch: one warm-up step, then `steps` timed (timed_steps: host clock
+    and CUDA events at forward, loss, backward, optimizer + EMA), with the
+    kernel launch counts set to 0 just before and read just after (the step
+    runs no kernel). Every loss finite, the BN running statistics moved."""
+    from self6dpp_tpu_torch.data.synthetic import make_gdrn_batch
+    from self6dpp_tpu_torch.engine import gdrn_engine as ge
+    from self6dpp_tpu_torch.engine.deepim_engine import to_device
+    model = ge.build_gdrn(cfg, device=device, seed=SEED)
+    state = ge.init_state(cfg, model)
+    step = ge.make_train_step(cfg, model)
+    batch = to_device(make_gdrn_batch(cfg, batch_size, seed=SEED), device)
+    bn0 = bn_stats_of(model)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    times, phases, metrics = timed_steps(step, state, batch, steps)
+    launches = kernel_launches()
+    require(not any(launches.values()), "stage I launched a kernel", launches)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "non-finite stage-I loss", m)
+    moved = max_abs_diff(bn_stats_of(model), bn0)
+    require(moved > 0, "stage I left the BN statistics where they were")
+    ms = float(np.median(times))
+    out = {**summary(times, phases), "config": cfg.exp_name,
+           "batch": batch_size, "compute_dtype": cfg.dist.compute_dtype,
+           "ms_range": [min(times), max(times)],
+           "images_per_s": batch_size / ms * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bn_stats_moved_max_abs": moved,
+           "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_normal_render(cfg, built):
+    """Phase 11: B1 at the normal-map pseudo label's shape (output_res²,
+    tiles of min(tile_px, output_res), K, three normal channels, no
+    silhouette) on the pose the step takes (the teacher's), against its
+    plain version: mask and face_id bit for bit, the rest within
+    TOL_KERNEL; its candidates depth-sorted; the largest count of filled
+    slots and of overlapping faces per tile beside K; timed, with its
+    bound."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.gdrn_engine import model_inputs
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    _, state, batch, _ = built
+    with torch.no_grad():
+        tout = state.teacher(*model_inputs(batch))
+    rot, trans = se.select_pseudo_pose(cfg.self_sup, batch, tout)
+    args, kw = se.normal_render_args(cfg, batch, rot.float(), trans.float())
+    o, tp, K = kw["height"], kw["tile_px"], kw["faces_per_tile"]
+    ftab, cand = R.raster_inputs(*args, o, o, tp, K)
+    require(RC.cand_depth_sorted(ftab, cand), "normal render: cand order")
+    call = (ftab, cand, o, o, tp, 1.0, False, True)
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    ref = RC.fine_raster_plain(*call)
+    v = compare_raster(got, ref, "normal render B1")
+    require(torch.equal(got.mask, ref.mask)
+            and torch.equal(got.face_id, ref.face_id),
+            "normal render: mask/face_id not bit for bit")
+    B, F, C = ftab.shape
+    fd = R.face_data(*args)
+    every = R._bin_faces(fd[0], fd[4], o, o, tp, F, fd[1])
+    overlap = (every >= 0).sum(-1)
+    v.update({"shape": {"batch": B, "out_res": o, "tile_px": tp, "K": K,
+                        "channels": (C - RC._GEO) // 3, "faces": F},
+              "max_filled_slots_per_tile": int((cand >= 0).sum(1).max()),
+              "max_overlapping_faces_per_tile": int(overlap.max()),
+              "tiles_over_K": int((overlap > K).sum()),
+              "tiles": int(overlap.numel())})
+    v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
+    v["graph_ms"] = graph_ms(lambda: RC.fine_raster(*call))
+    v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
+                            **PLAIN_TIMING)
+    n = raster_counts(ftab, cand, ref.mask, tp, o, o)
+    D = (C - RC._GEO) // 3
+    v.update(bound(n["face_rows_read"] * C * 4 + cand.numel() * 4
+                   + B * o * o * (4 + D + 3) * 4, b1_ops(n, with_prob=False)))
+    v["counts"] = {k: x for k, x in n.items() if not k.startswith("_")}
+    return v
+
+
+@contextlib.contextmanager
+def normal_launches_counted():
+    """Counts the B1 launches that the normal-map pseudo label makes while
+    active (fine_raster.launches across self_engine.render_pseudo_normals)."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    inner = se.render_pseudo_normals
+    n = {"launches": 0, "calls": 0}
+
+    def counted(*args, **kw):
+        before = RC.fine_raster.launches
+        out = inner(*args, **kw)
+        n["launches"] += RC.fine_raster.launches - before
+        n["calls"] += 1
+        return out
+    se.render_pseudo_normals = counted
+    try:
+        yield n
+    finally:
+        se.render_pseudo_normals = inner
+
+
+def time_masknormvf(cfg, device, batch_size, steps):
+    """Phase 11: MaskNormVF pose steps in the configured compute dtype:
+    one warm-up step, then `steps` timed (timed_steps), the launch counts
+    set to 0 just before and read just after: S3_LAUNCHES per step, one
+    B1 launch per step from the normal render; loss_vf and loss_norm
+    present, every loss finite."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    model, state, batch, lpips = se.build_stage2(cfg, batch_size, device,
+                                                 seed=SEED)
+    step = se.make_self_train_step(cfg, model, lpips)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with normal_launches_counted() as normals, scatter_counted() as scatters:
+        times, phases, metrics = timed_steps(step, state, batch, steps)
+    launches = kernel_launches()
+    require(scatters["n"] == 0, "the step's B2 ran the scatter", scatters)
+    for name, k in launches.items():
+        require(k == S3_LAUNCHES[name] * steps, "MaskNormVF launches", name,
+                k, steps)
+    require(normals["launches"] == normals["calls"] == steps,
+            "normal render launches", normals)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "non-finite MaskNormVF loss", m)
+    require({"loss_vf", "loss_norm"} <= set(metrics[-1]), "vf/norm terms",
+            sorted(metrics[-1]))
+    out = {**summary(times, phases), "config": cfg.exp_name,
+           "batch": batch_size, "compute_dtype": cfg.dist.compute_dtype,
+           "launches": launches, "normal_render_launches": normals["launches"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_geo_synsup(cfg, device, batch_size, steps):
+    """Phase 12: the geo-mode step (its warp and jitter drawn each step
+    from a seeded torch.Generator, inside the timed step) and the synsup
+    step at `cfg`'s widths: one warm-up step each, then `steps` timed, the
+    launch counts set to 0 before each and read after: no kernel launch;
+    every loss finite."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    model, state, batch, _ = se.build_stage2(cfg, batch_size, device,
+                                             seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    geo = se.make_self_geo_train_step(cfg, model)
+    steps_of = {
+        "geo": lambda st, b, mark=None: geo(st, b, se.draw_geo_aug(cfg, b, gen),
+                                            mark),
+        "synsup": se.make_synsup_train_step(cfg, model)}
+    out = {}
+    for name, step in steps_of.items():
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        zero_kernel_launches()
+        times, phases, metrics = timed_steps(step, state, batch, steps)
+        launches = kernel_launches()
+        require(not any(launches.values()), name, "launched a kernel",
+                launches)
+        for m in metrics:
+            require(all(torch.isfinite(v).item() for v in m.values()),
+                    "non-finite loss", name, m)
+        out[name] = {**summary(times, phases), "launches": launches,
+                     "last_losses": {k: float(v)
+                                     for k, v in metrics[-1].items()}}
+    out.update(config=cfg.exp_name, batch=batch_size,
+               compute_dtype=cfg.dist.compute_dtype)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def normal_render_kernel_line(nr, s3):
+    """The `kernels` entry of B1 at the normal render's shape."""
+    return {"name": "fine_raster_fwd[normals]", "route": "cuda",
+            "source": "self6dpp_tpu_torch/csrc/fine_raster_fwd.cu",
+            "replaces": "self6dpp_tpu/ops/raster_pallas.py:420",
+            "launches": s3["normal_render_launches"],
+            "max_abs_err": max(nr["max_abs_err"].values()), "ms": nr["ms"],
+            "graph_ms": nr["graph_ms"], "plain_ms": nr["plain_ms"],
+            "bound_ms": nr["bound_ms"], "bound_by": nr["bound_by"],
+            "library_ms": None}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1407,22 +1716,76 @@ def main() -> int:
         "peak_mem_gib": s2_steps["peak_mem_gib"],
         "partial_step_ms": s2_partial["ms_per_step"]}
     probe_path = {k: v["ms_per_step"] for k, v in probe.items()}
+
+    from self6dpp_tpu_torch.config import (gdrn_flagship, gdrn_lm_masknormvf,
+                                           stage2_masknormvf)
+    t0 = time.perf_counter()
+    s1_cpu = check_stage1_card_vs_cpu(device)
+    print(f"stage-I fp32 card vs CPU: {json.dumps(s1_cpu)}", flush=True)
+    s1 = time_stage1(gdrn_flagship(), device, S1_BATCH, S1_TIMED_STEPS)
+    print(f"stage-I bf16 steps: {json.dumps(s1)}", flush=True)
+    s1_vf = time_stage1(gdrn_lm_masknormvf(), device, S1_BATCH, S1_VF_STEPS)
+    require({"loss_vf_vis", "loss_vf_full", "loss_norm"}
+            <= set(s1_vf["last_losses"]), "gdrn_lm_masknormvf vf/norm terms",
+            sorted(s1_vf["last_losses"]))
+    print(f"stage-I MaskNormVF bf16 steps: {json.dumps(s1_vf)}", flush=True)
+    clock["stage1_phase10_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    s3 = stage2_cfg("bfloat16", base=stage2_masknormvf())
+    s3_32 = stage2_cfg("float32", lr=S2_LR, base=s3)
+    s3_built = se.build_stage2(s3_32, S2_BATCH, device, seed=SEED)
+    with cand_order_checked(cand_checks):
+        nr = check_normal_render(s3_32, s3_built)
+        print(f"normal render B1 vs plain: {json.dumps(nr)}", flush=True)
+        _, s3_fp32 = check_stage2_fp32(s3_32, device, S2_BATCH, s3_built)
+    del s3_built
+    require({"loss_vf", "loss_norm"} <= set(s3_fp32["losses_kernel"][0])
+            and {"loss_vf", "loss_norm"} <= set(s3_fp32["losses_plain"][0]),
+            "MaskNormVF fp32 steps: vf/norm terms")
+    print(f"MaskNormVF fp32 steps: {json.dumps(s3_fp32)}", flush=True)
+    s3_steps = time_masknormvf(s3, device, S2_BATCH, S3_TIMED_STEPS)
+    print(f"MaskNormVF bf16 steps: {json.dumps(s3_steps)}", flush=True)
+    clock["masknormvf_phase11_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gs = time_geo_synsup(s2, device, S2_BATCH, GEO_TIMED_STEPS)
+    print(f"geo and synsup steps: {json.dumps(gs)}", flush=True)
+    clock["geo_synsup_phase12_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
               "stage2_kernels": k5, "stage2_fp32": s2_fp32,
               "stage2_steps": s2_steps, "stage2_partial_steps": s2_partial,
-              "probe_kernels": k8, "lab_opaque_probe": probe, "clock": clock,
+              "probe_kernels": k8, "lab_opaque_probe": probe,
+              "stage1_card_vs_cpu": s1_cpu, "stage1_steps": s1,
+              "stage1_masknormvf_steps": s1_vf, "normal_render": nr,
+              "masknormvf_fp32": s3_fp32, "masknormvf_steps": s3_steps,
+              "geo_synsup_steps": gs, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
     print("record " + json.dumps(record))
     kernels = [kernel] + stage2_kernel_lines(k5, s2_launches, k8,
                                              probe_launches)
+    kernels.append(normal_render_kernel_line(nr, s3_steps))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
                                "lab_opaque_probe_ms_per_step": probe_path,
+                               "stage1_step": {
+                                   k: s1[k] for k in (
+                                       "config", "batch", "compute_dtype",
+                                       "ms_per_step", "ms_range",
+                                       "images_per_s", "phase_ms_median",
+                                       "peak_mem_gib")},
+                               "masknormvf_pose_step": {
+                                   k: s3_steps[k] for k in (
+                                       "config", "batch", "ms_per_step",
+                                       "phase_ms_median", "launches",
+                                       "peak_mem_gib")},
+                               "geo_step_ms": gs["geo"]["ms_per_step"],
+                               "synsup_step_ms": gs["synsup"]["ms_per_step"],
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

@@ -40,14 +40,15 @@ class GeoHeadConfig:
     region_class_aware: bool = False
     num_regions: int = 64
     xyz_bin: int = 64               # > 1: binned xyz, softmax over the bins
-    num_masks: int = 1
-    with_vf: bool = False
-    with_norm: bool = False
+    num_masks: int = 1              # 1 = visib; 2 = visib + full
+    with_vf: bool = False           # keypoint vector-field heads
+    with_norm: bool = False         # surface-normal head
+    num_vf_points: int = 16         # vf channels: {u,v} x {vis,full} x points
 
 
 @dataclass(frozen=True)
 class PnPNetConfig:
-    name: str = "ConvPnPNet"
+    name: str = "ConvPnPNet"        # ConvPnPNet | ConvPnPNetMaskNormVF
     with_extent_feat: bool = False
     featdim: int = 128
     rot_type: str = "allo_rot6d"    # allo_rot6d | ego_rot6d | allo_quat | ego_quat
@@ -68,9 +69,47 @@ class PnPNetConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Of the stage-I loss settings, the one the stage-II step reads: how
-    the mask head is trained, so how its logits become a probability."""
+    """The stage-I loss block (losses/gdrn_loss.py); the stage-II steps also
+    read mask_loss_type: how the mask head is trained, so how its logits
+    become a probability."""
+    # xyz
+    xyz_loss_type: str = "L1"       # L1 | CE_coor
+    xyz_loss_mask_gt: str = "visib" # trunc | visib | obj
+    xyz_lw: float = 1.0
+    # mask
     mask_loss_type: str = "BCE"     # L1 | BCE | RW_BCE | dice | CE
+    mask_loss_gt: str = "trunc"
+    mask_lw: float = 1.0
+    full_mask_lw: float = 1.0       # the second mask channel (num_masks 2)
+    # region
+    region_loss_type: str = "CE"
+    region_loss_mask_gt: str = "visib"
+    region_lw: float = 1.0
+    # point matching
+    pm_lw: float = 1.0
+    pm_loss_type: str = "L1"
+    pm_smooth_l1_beta: float = 1.0
+    pm_norm_by_extent: bool = False
+    pm_loss_sym: bool = True
+    pm_disentangle_t: bool = False
+    pm_disentangle_z: bool = False
+    pm_t_use_points: bool = True
+    pm_r_only: bool = True
+    # others
+    rot_lw: float = 0.0
+    rot_loss_type: str = "angular"
+    centroid_lw: float = 1.0
+    centroid_loss_type: str = "L1"
+    z_lw: float = 1.0
+    z_loss_type: str = "L1"
+    trans_lw: float = 0.0
+    trans_loss_type: str = "L1"
+    trans_loss_disentangle: bool = True
+    bind_lw: float = 0.0
+    bind_loss_type: str = "L1"
+    # supervised vf / normal terms (the MaskNormVF heads)
+    vf_lw: float = 0.0
+    norm_lw: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -83,6 +122,7 @@ class PoseNetConfig:
     geo_head: GeoHeadConfig = field(default_factory=GeoHeadConfig)
     pnp_net: PnPNetConfig = field(default_factory=PnPNetConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    use_mtl: bool = False           # uncertainty multi-task loss weighting
     neck: str = "none"
 
 
@@ -149,10 +189,11 @@ class DistConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
-    optimizer: str = "ranger"       # only ranger is ported
+    optimizer: str = "ranger"       # ranger | adam (the others raise)
     base_lr: float = 1e-4
     weight_decay: float = 0.0
-    lr_sched: str = "flat_and_anneal"
+    momentum: float = 0.9
+    lr_sched: str = "flat_and_anneal"   # flat_and_anneal | warmup_multistep
     anneal_method: str = "cosine"   # cosine | step | poly | linear
     anneal_point: float = 0.72
     warmup_iters: int = 1000
@@ -197,6 +238,15 @@ class SelfSupConfig:
     pseudo_pm_lw: float = 10.0
     pseudo_trans_lw: float = 0.0
     ema_decay: float = 0.999
+    teacher_update_freq: int = 1    # epochs between EMA teacher refreshes
+    geo_mode_ratio: float = 0.0     # share of iterations in the geo mode
+    mode_schedule: str = "random"   # random | alternate | fix_pose | fix_geo
+    # the geo mode's pose-variated warp of the student's ROI and the
+    # teacher's maps (ops/warp.py::sample_pose_variated_affines)
+    geo_aug_rot_deg: float = 180.0
+    geo_aug_zoom: tuple[float, float] = (0.75, 1.25)
+    geo_aug_trans: tuple[float, float] = (-0.1, 0.1)
+    geo_aug_crop: float = 0.1
     pseudo_pose_type: str = "pose_refine"   # pose_refine | pose_est | teacher
     refine_with_deepim: bool = False
     repj_refine: bool = False
@@ -272,3 +322,80 @@ def stage2_pose_tiny() -> Config:
                             ims_per_batch=2, reference_bs=2),
         renderer=RendererConfig(tile_px=16, faces_per_tile=128),
         dist=DistConfig(compute_dtype="float32"))
+
+
+def gdrn_flagship() -> Config:
+    """The stage-I GDR-Net train step that bench.py::bench_gdrn_train
+    measures (__graft_entry__._flagship_cfg): resnest50d, 256² ROI, 64²
+    output, 13 classes, the default geo head (binned xyz, 64 bins), PnP net
+    and loss block; Ranger at base_lr 1e-4 over 100k iterations, 24 images
+    per batch, bf16 compute."""
+    return Config(
+        exp_name="gdrn_flagship",
+        model=PoseNetConfig(num_classes=13, input_res=256, output_res=64,
+                            backbone=BackboneConfig(name="resnest50d")),
+        solver=SolverConfig(total_iters=100_000, ims_per_batch=24,
+                            reference_bs=24))
+
+
+def masknormvf_model(m: PoseNetConfig) -> PoseNetConfig:
+    """The GDRN_MaskNormVF head and PnP net of configs/gdrn/lm_masknormvf.py
+    on `m`: visib + full masks, 16-point vector fields, normals, regressed
+    xyz (xyz_bin 1, configs/gdrn/lm_base.py), the vf/norm maps fed to the
+    PnP net."""
+    return dataclasses.replace(
+        m,
+        geo_head=dataclasses.replace(m.geo_head, xyz_bin=1, num_masks=2,
+                                     with_vf=True, with_norm=True,
+                                     num_vf_points=16),
+        pnp_net=dataclasses.replace(m.pnp_net, name="ConvPnPNetMaskNormVF"))
+
+
+def gdrn_lm_masknormvf() -> Config:
+    """Stage-I GDRN_MaskNormVF for LINEMOD: the model, loss and solver of
+    configs/gdrn/lm_base.py + lm_masknormvf.py (resnest50d, 256² -> 64², 13
+    classes; L1 xyz, BCE mask, CE region, rotation-only symmetric PM,
+    centroid and z, vf and norm at weight 1; Ranger at 1e-4, cosine anneal
+    from 0.72 of 100k iterations, 24 images per batch, clip 35)."""
+    m = masknormvf_model(PoseNetConfig(
+        num_classes=13, input_res=256, output_res=64,
+        backbone=BackboneConfig(name="resnest50d"),
+        geo_head=GeoHeadConfig(up_types=("deconv", "bilinear", "bilinear"),
+                               feat_dim=256, num_regions=64),
+        pnp_net=PnPNetConfig(rot_type="allo_rot6d", trans_type="centroid_z",
+                             z_type="REL", region_attention=True,
+                             with_2d_coord=True)))
+    return Config(
+        exp_name="gdrn_lm_masknormvf",
+        model=dataclasses.replace(m, loss=LossConfig(
+            xyz_loss_type="L1", xyz_lw=1.0, mask_loss_type="BCE", mask_lw=1.0,
+            region_loss_type="CE", region_lw=1.0, pm_lw=1.0, pm_loss_sym=True,
+            pm_r_only=True, centroid_lw=1.0, z_lw=1.0, vf_lw=1.0,
+            norm_lw=1.0)),
+        solver=SolverConfig(optimizer="ranger", base_lr=1e-4,
+                            anneal_method="cosine", anneal_point=0.72,
+                            total_iters=100_000, ims_per_batch=24,
+                            reference_bs=24, grad_clip_norm=35.0))
+
+
+def stage2_masknormvf() -> Config:
+    """stage2_pose_flagship with the GDRN_MaskNormVF geo head and PnP net
+    of gdrn_lm_masknormvf and the pose step's vf and norm pseudo-label
+    terms at weight 1 (the weights tests/test_self_engine.py gives them;
+    the JAX package publishes no stage-II value)."""
+    f = stage2_pose_flagship()
+    return dataclasses.replace(
+        f, exp_name="stage2_masknormvf", model=masknormvf_model(f.model),
+        self_sup=dataclasses.replace(f.self_sup, vf_lw=1.0, norm_lw=1.0))
+
+
+def masknormvf_tiny() -> Config:
+    """stage2_pose_tiny (test widths, float32, Ranger at 1e-3 without
+    warm-up, 2 images per batch) with the MaskNormVF heads at 4
+    vector-field points and their stage-I vf and norm terms at weight 1."""
+    t = stage2_pose_tiny()
+    m = masknormvf_model(t.model)
+    m = dataclasses.replace(
+        m, geo_head=dataclasses.replace(m.geo_head, num_vf_points=4),
+        loss=dataclasses.replace(m.loss, vf_lw=1.0, norm_lw=1.0))
+    return dataclasses.replace(t, exp_name="masknormvf_tiny", model=m)

@@ -1,5 +1,6 @@
 """JAX-package variables (nested dicts of numpy arrays) -> the port's
-state_dicts, for DeepIM, GDRN and LPIPS.
+state_dicts, for DeepIM, GDRN and LPIPS, and the GDRN's state_dict back to
+JAX-package variables (gdrn_state_dict_to_flax).
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
 (flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
@@ -14,7 +15,11 @@ pnp_key_map, _map_block), with its own copy of the maps:
   bn      scale, bias (params), mean, var (batch_stats) -> weight, bias,
           running_mean, running_var
   gn      scale, bias                    -> weight, bias
-Raises on any flax leaf left unused and any torch key left unfilled.
+  mtl     params['mtl'][term] (1,)       -> mtl.<term> (use_mtl)
+The GDRN's geo-head out layer and first PnP conv take whatever width the
+configuration gives them (the vf/norm channels of the MaskNormVF variant
+widen both). Raises on any flax leaf left unused and any torch key left
+unfilled.
 """
 
 from __future__ import annotations
@@ -164,6 +169,8 @@ def gdrn_key_map(model) -> dict[str, tuple[str, str]]:
     n = c.pnp_net.num_stride2_layers + c.pnp_net.num_extra_layers
     m.update({f"pnp_net.{k}": (kind, f"pnp_net.{v}")
               for k, (kind, v) in pnp_key_map(n).items()})
+    if c.use_mtl:
+        m["mtl"] = ("mtl", "mtl")
     return m
 
 
@@ -195,23 +202,53 @@ def _to_torch_layout(a: np.ndarray, kind: str,
     return a.T
 
 
+def _from_torch_layout(t: np.ndarray, kind: str,
+                       flat_hwc: tuple[int, int, int] | None) -> np.ndarray:
+    """The inverse of _to_torch_layout."""
+    if t.ndim == 1:
+        return t
+    if kind == "conv":
+        return t.transpose(2, 3, 1, 0)
+    if kind == "deconv":
+        return t.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if kind == "dense":
+        return t[:, :, 0, 0].T
+    a = t.T
+    if kind == "fc_flat":
+        h, w, ch = flat_hwc
+        cout = a.shape[1]
+        a = a.reshape(ch, h, w, cout).transpose(1, 2, 0, 3).reshape(-1, cout)
+    return a
+
+
+def _flax_key(tk: str, key_map: dict[str, tuple[str, str]]
+              ) -> tuple[str, str | None]:
+    """(kind, 'collection.module.leaf') of a torch key; None for
+    num_batches_tracked, which flax does not keep."""
+    mod, leaf = tk.rsplit(".", 1)
+    if mod not in key_map:
+        raise KeyError(f"no flax source for torch key {tk}")
+    kind, fmod = key_map[mod]
+    if leaf == "num_batches_tracked":
+        return kind, None
+    if kind == "mtl":
+        return kind, f"params.{fmod}.{leaf}"
+    leaves = _NORM_LEAVES if kind in ("bn", "gn") else _LEAVES
+    if leaf not in leaves:
+        raise KeyError(f"no flax leaf for torch key {tk}")
+    coll, fleaf = leaves[leaf]
+    return kind, f"{coll}.{fmod}.{fleaf}"
+
+
 def _convert(model: nn.Module, flat: dict[str, np.ndarray],
              key_map: dict[str, tuple[str, str]],
              flat_hwc: tuple[int, int, int] | None) -> dict[str, torch.Tensor]:
     out, used = {}, set()
     for tk, target in model.state_dict().items():
-        mod, leaf = tk.rsplit(".", 1)
-        if mod not in key_map:
-            raise KeyError(f"no flax source for torch key {tk}")
-        kind, fmod = key_map[mod]
-        if leaf == "num_batches_tracked":
+        kind, fk = _flax_key(tk, key_map)
+        if fk is None:
             out[tk] = torch.zeros_like(target)
             continue
-        leaves = _NORM_LEAVES if kind in ("bn", "gn") else _LEAVES
-        if leaf not in leaves:
-            raise KeyError(f"no flax leaf for torch key {tk}")
-        coll, fleaf = leaves[leaf]
-        fk = f"{coll}.{fmod}.{fleaf}"
         if fk not in flat:
             raise KeyError(f"flax variables lack {fk} (for {tk})")
         a = np.ascontiguousarray(_to_torch_layout(flat[fk], kind, flat_hwc))
@@ -244,6 +281,28 @@ def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor
     pn = model.pnp_net
     flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
     return _convert(model, flat, gdrn_key_map(model), flat_hwc)
+
+
+def gdrn_state_dict_to_flax(model, state_dict: Mapping | None = None) -> dict:
+    """The port GDRN's state_dict (default: its own) as the JAX GDRN's
+    variables {'params': ..., 'batch_stats': ...}, nested dicts of float32
+    numpy arrays: the inverse of gdrn_flax_to_state_dict."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    pn = model.pnp_net
+    flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
+    key_map = gdrn_key_map(model)
+    tree: dict = {}
+    for tk, v in sd.items():
+        kind, fk = _flax_key(tk, key_map)
+        if fk is None:
+            continue
+        a = _from_torch_layout(v.detach().cpu().numpy(), kind, flat_hwc)
+        *path, leaf = fk.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a, dtype=np.float32)
+    return tree
 
 
 # reference LPIPS (PerceptualSimilarity, alexnet) module names -> the port's

@@ -22,10 +22,6 @@ def make_gdrn_batch(cfg: Config, batch_size: int = 4, seed: int = 0,
     nc = cfg.model.num_classes
     nreg = cfg.model.geo_head.num_regions
     nsym = cfg.data.max_sym_rots
-    gh = cfg.model.geo_head
-    if gh.with_vf or gh.with_norm:
-        raise ValueError("vf/norm targets belong to a later slice")
-
     K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1]],
                  dtype=np.float32)
     roi_center = rng.uniform(200, 440, (b, 2)).astype(np.float32)
@@ -41,7 +37,7 @@ def make_gdrn_batch(cfg: Config, batch_size: int = 4, seed: int = 0,
     sym_valid = np.zeros((b, nsym), dtype=bool)
     sym_valid[:, 0] = True
 
-    return {
+    batch = {
         "roi_img": rng.uniform(0, 1, (b, s, s, 3)).astype(np.float32),
         "roi_cls": rng.integers(0, nc, (b,)).astype(np.int32),
         "roi_cam": np.broadcast_to(K, (b, 3, 3)).copy(),
@@ -65,3 +61,19 @@ def make_gdrn_batch(cfg: Config, batch_size: int = 4, seed: int = 0,
         "sym_rots": sym_rots,
         "sym_valid": sym_valid,
     }
+    # the vf/norm targets draw after everything else, so that the arrays
+    # above do not depend on the heads
+    gh = cfg.model.geo_head
+    if gh.with_vf:
+        f = gh.num_vf_points
+        for k in ("gt_vf_vis", "gt_vf_full"):
+            v = rng.normal(0, 1, (b, o, o, 2 * f)).astype(np.float32)
+            v /= np.maximum(np.linalg.norm(
+                v.reshape(b, o, o, f, 2), axis=-1, keepdims=True),
+                1e-8).reshape(b, o, o, f, 1).repeat(2, -1).reshape(b, o, o, -1)
+            batch[k] = v
+    if gh.with_norm:
+        n = rng.normal(0, 1, (b, o, o, 3)).astype(np.float32)
+        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-8)
+        batch["gt_norm"] = n * batch["gt_mask_visib"][..., None]
+    return batch

@@ -1,18 +1,31 @@
-"""GDRN construction and inputs (port of self6dpp_tpu/engine/gdrn_engine.py:
-BATCH_MODEL_KEYS, model_inputs, build_gdrn, init_state)."""
+"""GDRN construction, inputs and the stage-I train and eval steps (port of
+self6dpp_tpu/engine/gdrn_engine.py: BATCH_MODEL_KEYS, model_inputs,
+build_gdrn, init_state, make_train_step, make_eval_step).
+
+The stage-I step: the student's forward with batch norm in train mode
+(Flax's statistics and running update, models/layers.py::FlaxBatchNorm2d),
+in the configured compute dtype; the GDRN loss (with the MTL weighting
+when use_mtl); backward; the solver; the EMA teacher. The JAX package
+jits it into one XLA program; here it runs eagerly and updates the state
+in place.
+"""
 
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 
 import torch
 from torch import Tensor, nn
 
 from .. import resolve_device
 from ..config import Config
+from ..losses.gdrn_loss import gdrn_loss
 from ..models.gdrn import GDRN
 from .optim import build_optimizer
-from .train_state import TrainState, create_train_state
+from .train_state import TrainState, create_train_state, ema_decay_schedule
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 BATCH_MODEL_KEYS = (
     "roi_img", "roi_cls", "roi_cam", "roi_center", "roi_wh", "roi_extent",
@@ -25,6 +38,27 @@ _TRUNC_STD = 0.87962566103423978
 
 def model_inputs(batch: dict[str, Tensor]) -> tuple:
     return tuple(batch[k] for k in BATCH_MODEL_KEYS)
+
+
+def no_mark(name: str) -> None:
+    pass
+
+
+def event_marker(marks: list) -> Callable[[str], None]:
+    """mark(name) appends (name, a recorded CUDA event) to `marks`: the
+    phases of a step on the card's clock, read after a synchronize."""
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+    return mark
+
+
+def autocast(cfg: Config, device: torch.device):
+    """The compute dtype's autocast context (none for float32)."""
+    dtype = DTYPES[cfg.dist.compute_dtype]
+    return torch.autocast(device.type, dtype=dtype,
+                          enabled=dtype != torch.float32)
 
 
 @torch.no_grad()
@@ -80,7 +114,71 @@ def build_gdrn(cfg: Config, device=None, seed: int | None = None) -> GDRN:
 
 
 def init_state(cfg: Config, model: GDRN) -> TrainState:
-    """Student, EMA teacher and Ranger over the student's parameters."""
+    """Student, EMA teacher and the solver over the student's parameters."""
     return create_train_state(model, build_optimizer(cfg.solver,
                                                      model.parameters()),
                               with_ema=cfg.solver.ema_decay > 0)
+
+
+def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark):
+    """The tail of every step: the total (summed in sorted key order, as
+    jax.tree.leaves orders a dict), backward, the solver, the step count,
+    the EMA. Returns (state, metrics as detached 0-d tensors)."""
+    total = sum(ld[k] for k in sorted(ld))
+    state.opt.zero_grad(set_to_none=True)
+    total.backward()
+    mark("backward")
+    state.opt.step()
+    state.step += 1
+    state.update_ema(decay_fn)
+    mark("optimizer_ema")
+    metrics = {k: v.detach() for k, v in ld.items()}
+    metrics["total_loss"] = total.detach()
+    return state, metrics
+
+
+def make_train_step(cfg: Config, model: GDRN):
+    """Returns train_step(state, batch, mark=None) -> (state, metrics): one
+    stage-I step on a batch with the ground truth of
+    data/synthetic.py::make_gdrn_batch, updating the state in place. BN
+    trains (its running statistics move), the teacher follows by EMA at
+    ema_decay_schedule(solver.ema_decay, solver.ema_warmup_iters) of the
+    step count (which counts micro-batches under accumulation, as the JAX
+    state's does). metrics holds every loss term and total_loss as 0-d
+    tensors; mark(name), if given, is called after the forward, the loss,
+    the backward and the optimizer + EMA."""
+    decay_fn = ema_decay_schedule(cfg.solver.ema_decay,
+                                  cfg.solver.ema_warmup_iters)
+    gh = cfg.model.geo_head
+
+    def train_step(state: TrainState, batch: dict[str, Tensor], mark=None):
+        mark = mark or no_mark
+        net = state.model.train()
+        dev = next(net.parameters()).device
+        with autocast(cfg, dev):
+            out = net(*model_inputs(batch))
+        out = {k: v.float() for k, v in out.items()}
+        mark("forward")
+        ld = gdrn_loss(cfg.model.loss, cfg.model.pnp_net, out, batch,
+                       num_regions=gh.num_regions, xyz_bin=gh.xyz_bin,
+                       mtl_log_vars=net.mtl if cfg.model.use_mtl else None)
+        mark("loss")
+        return descend(state, ld, decay_fn, mark)
+
+    return train_step
+
+
+def make_eval_step(cfg: Config, model: GDRN, use_ema: bool = False):
+    """Returns eval_step(state, batch) -> {'rot', 'trans'}: the student's
+    (or, with use_ema, the teacher's) forward with BN on the running
+    statistics, which the teacher shares with the student."""
+    def eval_step(state: TrainState, batch: dict[str, Tensor]):
+        net = state.teacher if (use_ema and state.teacher is not None) \
+            else state.model
+        net.eval()
+        dev = next(net.parameters()).device
+        with torch.no_grad(), autocast(cfg, dev):
+            out = net(*model_inputs(batch))
+        return {"rot": out["rot"].float(), "trans": out["trans"].float()}
+
+    return eval_step

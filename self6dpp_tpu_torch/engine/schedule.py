@@ -1,4 +1,5 @@
-"""LR schedule (port of self6dpp_tpu/engine/schedule.py::flat_and_anneal):
+"""LR schedules (port of self6dpp_tpu/engine/schedule.py: flat_and_anneal,
+warmup_multistep). flat_and_anneal:
 warm-up, then flat, then annealing from `anneal_point` of total_iters.
 Evaluated in float32, as the JAX package evaluates it."""
 
@@ -45,5 +46,24 @@ def flat_and_anneal(cfg: SolverConfig):
         if cfg.anneal_method != "step" and s < anneal_start:
             af = _f32(1)
         return _f32(_f32(cfg.base_lr) * wf * af)
+
+    return sched
+
+
+def warmup_multistep(cfg: SolverConfig):
+    """WarmupMultiStepLR: linear warm-up, then a factor step_gamma at each
+    milestone (cfg.steps, shares of total_iters). f(step) -> float32 lr."""
+    total = max(cfg.total_iters, 1)
+    milestones = [_f32(s * total) for s in cfg.steps]
+    warmup = _f32(max(cfg.warmup_iters, 1))
+
+    def sched(step: int) -> np.float32:
+        s = _f32(step)
+        alpha = np.clip(s / warmup, _f32(0), _f32(1))
+        wf = _f32(cfg.warmup_factor) * (_f32(1) - alpha) + alpha
+        f = _f32(1)
+        for m in milestones:
+            f = f * (_f32(cfg.step_gamma) if s >= m else _f32(1))
+        return _f32(_f32(cfg.base_lr) * wf * f)
 
     return sched

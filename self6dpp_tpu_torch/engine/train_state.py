@@ -1,10 +1,13 @@
 """Train state and EMA teacher (port of self6dpp_tpu/engine/train_state.py).
 
 The JAX package carries an immutable pytree of params, batch stats,
-optimizer state and EMA params. Here the student module holds the params
-and (frozen) batch stats, the teacher is a copy of it whose parameters
-follow the student by EMA, and the optimizer holds its own state; the step
-updates all three in place.
+optimizer state and EMA params, and runs the teacher on the EMA params
+with the student's batch stats. Here the student module holds the params
+and the batch stats, the teacher is a copy of it in eval mode whose
+parameters follow the student by EMA and whose batch-norm buffers are the
+student's own tensors (so a stage-I step that trains BN moves the
+teacher's statistics with the student's), and the optimizer holds its own
+state; the step updates all three in place.
 """
 
 from __future__ import annotations
@@ -50,10 +53,30 @@ def ema_decay_schedule(base_decay: float, ramp_iters: int = 2000):
     return fn
 
 
+def gated_ema_decay(base_decay: float, warmup_iters: int, every: int = 1):
+    """ema_decay_schedule that fires every `every` steps: decay 1 (the
+    teacher unchanged) on the other steps."""
+    raw = ema_decay_schedule(base_decay, warmup_iters)
+    if every <= 1:
+        return raw
+    return lambda step: raw(step) if step % every == 0 else _f32(1)
+
+
+def share_norm_buffers_(teacher: nn.Module, model: nn.Module) -> None:
+    """Point every batch-norm buffer of the teacher (running statistics and
+    count) at the student's tensor of the same name."""
+    src = dict(model.named_modules())
+    for name, m in teacher.named_modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            for key in list(m._buffers):
+                m._buffers[key] = src[name]._buffers[key]
+
+
 def create_train_state(model: nn.Module, opt: torch.optim.Optimizer,
                        with_ema: bool = True) -> TrainState:
     teacher = None
     if with_ema:
-        teacher = copy.deepcopy(model)
+        teacher = copy.deepcopy(model).eval()
         teacher.requires_grad_(False)
+        share_norm_buffers_(teacher, model)
     return TrainState(step=0, model=model, teacher=teacher, opt=opt)

@@ -1,15 +1,17 @@
-"""Stage-II self-supervised pose-mode loss suite (port of
+"""Stage-II self-supervised loss suites (port of
 self6dpp_tpu/losses/self_loss.py: inject_grad, mask_dilate/mask_erode,
-compute_mask_edge_weights, compute_self_loss_pose).
+compute_mask_edge_weights, vf_loss, norm_loss, compute_self_loss_geo,
+compute_self_loss_pose).
 
-Ported terms: the rendered-mask loss against the teacher's pseudo mask
+Pose-mode terms: the rendered-mask loss against the teacher's pseudo mask
 (RW_BCE with edge weights, dice or L1); LAB, as a given (value, gradient)
 pair (lab_linear), through kernel B3 or by autograd of lab_loss, the
 gradient of the first two entering through InjectGrad; LPIPS; MS-SSIM;
 the chamfer between the backprojected rendered and observed depths; xyz
-and region init-pred (student vs teacher); pseudo-pose PM and trans. The
-vf/norm terms need the GDRN vf/norm heads, which the port does not have:
-compute_self_loss_pose raises when their weights are above 0.
+and region init-pred (student vs teacher); pseudo-pose PM and trans; the
+vf and norm maps against the pseudo pose's vector field and rendered
+normals. Geo-mode terms: the student's masks, xyz, region, vf and norm
+against the teacher's (warped) maps.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from ..ops.ssim import ms_ssim
 from .mask_losses import weighted_ex_loss_probs
 from .pm_loss import pm_loss
 
-_LATER = ("vf_lw", "norm_lw")
 # the chamfer's sampling stride is int((S²/_MAX_DEPTH_POINTS)^0.5): 5 at
 # S = 256, 52² = 2704 points per image (the JAX package's max_depth_points)
 _MAX_DEPTH_POINTS = 2048
@@ -74,12 +75,80 @@ def compute_mask_edge_weights(mask: Tensor, dilate_ks: int = 11,
     return g.max() - g + 1.0
 
 
+def vf_loss(pred_vf: Tensor, gt_vf: Tensor, mask: Tensor) -> Tensor:
+    """Masked L1 plus cosine misalignment of 2-D vector fields. pred, gt
+    (B,H,W,2k) as [u0,v0,u1,v1,...]; mask (B,H,W)."""
+    m = mask[..., None]
+    denom = (m.sum() * pred_vf.shape[-1]).clamp_min(1.0)
+    l1 = ((pred_vf - gt_vf).abs() * m).sum() / denom
+    b, h, w, c = pred_vf.shape
+    p = pred_vf.reshape(b, h, w, c // 2, 2)
+    g = gt_vf.reshape(b, h, w, c // 2, 2)
+    nn_ = torch.linalg.vector_norm(p, dim=-1) * torch.linalg.vector_norm(g, dim=-1)
+    cos = (p * g).sum(-1) / nn_.clamp_min(1e-6)
+    cos_term = ((1.0 - cos) * m).sum() / (mask.sum() * (c // 2)).clamp_min(1.0)
+    return l1 + cos_term
+
+
+def norm_loss(pred_n: Tensor, gt_n: Tensor, mask: Tensor) -> Tensor:
+    """Masked L1 plus cosine misalignment of surface normals (B,H,W,3)."""
+    m = mask[..., None]
+    l1 = ((pred_n - gt_n).abs() * m).sum() / (m.sum() * 3).clamp_min(1.0)
+    nn_ = (torch.linalg.vector_norm(pred_n, dim=-1)
+           * torch.linalg.vector_norm(gt_n, dim=-1))
+    cos = (pred_n * gt_n).sum(-1) / nn_.clamp_min(1e-6)
+    cos_term = ((1.0 - cos) * mask).sum() / mask.sum().clamp_min(1.0)
+    return l1 + cos_term
+
+
+def _init_pred_terms(loss: dict, pred: dict, pseudo: dict) -> None:
+    """xyz and region of the student against the teacher's, in its pseudo
+    mask at output resolution."""
+    m = pseudo["vis_mask_lr"][..., None]
+    if "coor" in pred and "coor" in pseudo:
+        diff = (pred["coor"] - pseudo["coor"]).abs() * m
+        loss["loss_init_pred_xyz"] = diff.sum() / (m.sum().clamp_min(1.0) * 3)
+    if "region_logits" in pred and "region" in pseudo:
+        pr = torch.softmax(pred["region_logits"], dim=-1)
+        loss["loss_region_init_pred"] = ((pr - pseudo["region"]).abs() * m).mean()
+
+
+def _vf_norm_terms(cfg: SelfSupConfig, loss: dict, pred: dict,
+                   pseudo: dict) -> None:
+    vis = pseudo["vis_mask_lr"]
+    if cfg.vf_lw > 0 and "vf" in pred and "vf" in pseudo:
+        loss["loss_vf"] = cfg.vf_lw * vf_loss(pred["vf"], pseudo["vf"], vis)
+    if cfg.norm_lw > 0 and "norm" in pred and "norm" in pseudo:
+        loss["loss_norm"] = cfg.norm_lw * norm_loss(pred["norm"],
+                                                    pseudo["norm"], vis)
+
+
+def compute_self_loss_geo(cfg: SelfSupConfig, pred: dict[str, Tensor],
+                          pseudo: dict[str, Tensor],
+                          mask_prob_fn=None) -> dict[str, Tensor]:
+    """Geo-mode losses: the student's geo-mode outputs (mask_logits, coor,
+    region_logits, vf, norm) against the teacher's pseudo maps in the same
+    frame (vis_mask_lr, [full_mask_lr,] coor, region, vf, norm): the visib
+    (and full) mask RW_BCE, xyz and region init-pred, vf and norm.
+    mask_prob_fn turns mask logits into probabilities."""
+    loss: dict[str, Tensor] = {}
+    vis_lr = pseudo["vis_mask_lr"]
+    if cfg.mask_lw > 0 and mask_prob_fn is not None:
+        p = mask_prob_fn(pred["mask_logits"][..., :1])[..., 0]
+        loss["loss_vis_mask_init_pred"] = cfg.mask_lw * weighted_ex_loss_probs(
+            p.clamp(1e-7, 1 - 1e-7), vis_lr)
+        if pred["mask_logits"].shape[-1] >= 2 and "full_mask_lr" in pseudo:
+            pf = mask_prob_fn(pred["mask_logits"][..., 1:2])[..., 0]
+            loss["loss_full_mask_init_pred"] = cfg.mask_lw * \
+                weighted_ex_loss_probs(pf.clamp(1e-7, 1 - 1e-7),
+                                       pseudo["full_mask_lr"])
+    _init_pred_terms(loss, pred, pseudo)
+    _vf_norm_terms(cfg, loss, pred, pseudo)
+    return loss
+
+
 def check_supported(cfg: SelfSupConfig) -> None:
-    """Raise for what the pose-mode loss suite does not port yet."""
-    on = [n for n in _LATER if getattr(cfg, n) > 0]
-    if on:
-        raise ValueError(f"{', '.join(on)} > 0: the vf/norm terms need the "
-                         "GDRN vf/norm heads, a later slice of the port")
+    """Raise for what the pose-mode loss suite does not port."""
     if cfg.lab_lw > 0 and cfg.lab_impl not in ("pallas", "direct"):
         raise ValueError(f"lab_impl {cfg.lab_impl!r}: the port has 'pallas' "
                          "(its CUDA kernel) and 'direct'")
@@ -162,15 +231,7 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
             rp, op, rw, ow, dist_thr=cfg.chamfer_dist_thr,
             center_lw=cfg.chamfer_center_lw)
 
-    if "coor" in pred and "coor" in pseudo:
-        m = pseudo["vis_mask_lr"][..., None]
-        denom = m.sum().clamp_min(1.0)
-        diff = (pred["coor"] - pseudo["coor"]).abs() * m
-        loss["loss_init_pred_xyz"] = diff.sum() / (denom * 3)
-    if "region_logits" in pred and "region" in pseudo:
-        m = pseudo["vis_mask_lr"][..., None]
-        pr = torch.softmax(pred["region_logits"], dim=-1)
-        loss["loss_region_init_pred"] = ((pr - pseudo["region"]).abs() * m).mean()
+    _init_pred_terms(loss, pred, pseudo)
 
     if cfg.pseudo_pm_lw > 0:
         loss.update(pm_loss(
@@ -185,4 +246,5 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
             pred["trans"][:, :2] - pseudo["trans"][:, :2]).abs().mean()
         loss["loss_trans_z"] = cfg.pseudo_trans_lw * (
             pred["trans"][:, 2] - pseudo["trans"][:, 2]).abs().mean()
+    _vf_norm_terms(cfg, loss, pred, pseudo)
     return loss

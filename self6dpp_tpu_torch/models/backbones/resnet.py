@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as Fnn
 from torch import Tensor, nn
 
+from ..layers import FlaxBatchNorm2d
+
 _STAGE_SPECS = {
     # 'micro': 1 basic block per stage at 1/8 width (the test architecture)
     "micro": ("basic", (1, 1, 1, 1)),
@@ -32,7 +34,7 @@ _STAGE_SPECS = {
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+    return FlaxBatchNorm2d(c, eps=1e-5)
 
 
 def _downsample(cin: int, cout: int, stride: int, avg_down: bool) -> nn.Module:

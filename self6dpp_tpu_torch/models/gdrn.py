@@ -1,6 +1,12 @@
 """GDR-Net: backbone -> top-down geo head -> Patch-PnP -> differentiable
 pose (port of self6dpp_tpu/models/gdrn.py for the ResNet/ResNeSt backbones,
-the TopDownMaskXyzRegionHead and ConvPnPNet).
+the TopDownMaskXyzRegionHead with its double-mask, vf and norm outputs,
+and ConvPnPNet / ConvPnPNetMaskNormVF).
+
+Batch norm trains as Flax's does (models/layers.py::FlaxBatchNorm2d) in
+train mode; with use_mtl the model holds the multi-task log variances
+(`mtl`, one per loss term of losses/gdrn_loss.py::MTL_TERMS), which the
+JAX package keeps under params['mtl'].
 
 Inputs and outputs keep the JAX package's NHWC layout (roi_img (B,S,S,3),
 roi_coord_2d (B,o,o,2), dense outputs (B,o,o,C)); inside, the network runs
@@ -14,6 +20,7 @@ import torch
 from torch import Tensor, nn
 
 from ..config import PoseNetConfig
+from ..losses.gdrn_loss import MTL_TERMS
 from ..ops import pose_decode
 from .backbones.resnet import ResNetBackbone
 from .heads.conv_pnp_net import ConvPnPNet
@@ -25,9 +32,10 @@ class GDRN(nn.Module):
         super().__init__()
         c = cfg
         if c.neck != "none" or c.geo_head.name != "TopDownMaskXyzRegionHead" \
-                or c.pnp_net.name != "ConvPnPNet":
+                or c.pnp_net.name not in ("ConvPnPNet", "ConvPnPNetMaskNormVF"):
             raise ValueError("only the ResNet backbone, TopDownMaskXyzRegionHead "
-                             "and ConvPnPNet without a neck are ported")
+                             "and ConvPnPNet(MaskNormVF) without a neck are "
+                             "ported")
         if c.pnp_net.trans_type != "centroid_z":
             raise ValueError(f"trans_type {c.pnp_net.trans_type!r} belongs to "
                              "a later slice")
@@ -41,8 +49,16 @@ class GDRN(nn.Module):
         gh, pn = c.geo_head, c.pnp_net
         region = gh.num_regions if pn.region_attention else 0
         nin = 3 + (2 if pn.with_2d_coord else 0) + region
+        if pn.name == "ConvPnPNetMaskNormVF":
+            # the vf and norm maps join the PnP input (class slices)
+            if not (gh.with_vf or gh.with_norm):
+                raise ValueError("ConvPnPNetMaskNormVF needs with_vf/with_norm")
+            nin += 4 * gh.num_vf_points * gh.with_vf + 3 * gh.with_norm
         rot_dim = 6 if pn.rot_type.endswith("rot6d") else 4
         self.pnp_net = ConvPnPNet(pn, nin, c.output_res, rot_dim)
+        if c.use_mtl:
+            self.mtl = nn.ParameterDict(
+                {k: nn.Parameter(torch.zeros(1)) for k in MTL_TERMS})
 
     def forward(self, roi_img: Tensor, roi_cls: Tensor, roi_cam: Tensor,
                 roi_center: Tensor, roi_wh: Tensor, roi_extent: Tensor,
@@ -73,6 +89,9 @@ class GDRN(nn.Module):
         out["coor"] = coor
         out["mask_logits"] = maps["mask"]
         out["region_logits"] = maps["region"]
+        for k in ("vf", "norm"):
+            if k in maps:
+                out[k] = maps[k]
         if forward_mode == "geo":
             return out
 
@@ -83,8 +102,11 @@ class GDRN(nn.Module):
             coor_feat = torch.cat([coor_feat, roi_coord_2d.to(coor.dtype)], -1)
         region_atten = (torch.softmax(maps["region"][..., 1:], dim=-1)
                         if pn.region_attention else None)
+        extra = None
+        if pn.name == "ConvPnPNetMaskNormVF":
+            extra = torch.cat([maps[k] for k in ("vf", "norm") if k in maps], -1)
         rot_rep, pred_t = self.pnp_net(coor_feat, region=region_atten,
-                                       extents=roi_extent)
+                                       extents=roi_extent, extra_feat=extra)
         # the pose is decoded in float32 whatever the compute dtype: the
         # render and the pose losses take it in float32
         with torch.autocast(rot_rep.device.type, enabled=False):

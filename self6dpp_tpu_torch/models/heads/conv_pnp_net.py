@@ -1,5 +1,7 @@
 """Patch-PnP head: dense geometry maps -> (rot_rep, centroid + z) (port of
-self6dpp_tpu/models/heads/conv_pnp_net.py::ConvPnPNet).
+self6dpp_tpu/models/heads/conv_pnp_net.py::ConvPnPNet, which is also the
+trunk of ConvPnPNetMaskNormVF: the predicted vf and norm maps join its
+input after the mask attention, as extra_feat).
 
 Module names follow the reference ConvPnPNet: `features` (conv, norm, act
 per stride-2 layer), fc1, fc2, fc_r, fc_t. Inputs are NHWC, as in the JAX
@@ -47,15 +49,19 @@ class ConvPnPNet(nn.Module):
         self.act = get_act(c.act)
 
     def forward(self, coor_feat: Tensor, region: Tensor | None = None,
-                extents: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                extents: Tensor | None = None,
+                extra_feat: Tensor | None = None) -> tuple[Tensor, Tensor]:
         """coor_feat (B,H,W,3[+2]) xyz (+2d coords); region (B,H,W,R)
-        softmaxed; extents (B,3). Returns (rot_rep (B,rot_dim), t (B,3))."""
+        softmaxed; extents (B,3); extra_feat (B,H,W,E) the vf/norm maps.
+        Returns (rot_rep (B,rot_dim), t (B,3))."""
         c = self.cfg
         if (c.denormalize_by_extent and extents is not None
                 and coor_feat.shape[-1] in (3, 5)):
             xyz = (coor_feat[..., :3] - 0.5) * extents[:, None, None, :]
             coor_feat = torch.cat([xyz, coor_feat[..., 3:]], dim=-1)
         x = coor_feat if region is None else torch.cat([coor_feat, region], -1)
+        if extra_feat is not None:
+            x = torch.cat([x, extra_feat.to(x.dtype)], -1)
         x = x.permute(0, 3, 1, 2)
         for layer in self.features:
             x = layer(x)

@@ -18,17 +18,24 @@ from ..layers import ConvNormAct, ConvTranspose2x, Norm, Upsample2x, get_act
 
 
 def geo_map_channels(c: GeoHeadConfig, num_classes: int) -> dict[str, int]:
-    """Output channel plan: mask, xyz (3, or 3*(xyz_bin+1) binned), region
-    (num_regions + 1), each times num_classes when class-aware."""
-    if c.with_vf or c.with_norm:
-        raise ValueError("vf/norm head outputs belong to a later slice")
+    """Output channel plan, in the shared out layer's order: mask
+    (num_masks: visib [+ full]), xyz (3, or 3*(xyz_bin+1) binned), region
+    (num_regions + 1), with_vf: vf (4*num_vf_points: {u,v} of each point,
+    visib then full), with_norm: norm (3); each times num_classes when
+    class-aware (vf and norm follow xyz)."""
     xyz_dim = 3 if c.xyz_bin <= 1 else 3 * (c.xyz_bin + 1)
-    return {
+    xyz_mult = num_classes if c.xyz_class_aware else 1
+    chans = {
         "mask": c.num_masks * (num_classes if c.mask_class_aware else 1),
-        "xyz": xyz_dim * (num_classes if c.xyz_class_aware else 1),
+        "xyz": xyz_dim * xyz_mult,
         "region": (c.num_regions + 1) * (num_classes if c.region_class_aware
                                          else 1),
     }
+    if c.with_vf:
+        chans["vf"] = 4 * c.num_vf_points * xyz_mult
+    if c.with_norm:
+        chans["norm"] = 3 * xyz_mult
+    return chans
 
 
 class TopDownGeoHead(nn.Module):
@@ -77,7 +84,8 @@ def gather_class_aware(maps: dict[str, Tensor], cfg: GeoHeadConfig,
     """Select each ROI's class slice of the class-aware (NHWC) maps."""
     out = dict(maps)
     flags = {"mask": cfg.mask_class_aware, "xyz": cfg.xyz_class_aware,
-             "region": cfg.region_class_aware}
+             "region": cfg.region_class_aware, "vf": cfg.xyz_class_aware,
+             "norm": cfg.xyz_class_aware}
     for k, v in maps.items():
         if not flags.get(k, False):
             continue

@@ -36,14 +36,42 @@ def gn_groups(num_gn_groups: int, channels: int) -> int:
     return groups
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose training mode is Flax's nn.BatchNorm(momentum=0.9),
+    as the JAX package trains: batch statistics in float32 with the
+    variance as E[x²] - E[x]² clipped at 0, x normalised with them, and the
+    running statistics updated in place as 0.9 r + 0.1 s with the biased
+    variance (torch's BatchNorm2d takes the unbiased one, n/(n-1) away:
+    1 + 6.5e-4 at batch 24 and stride 32). Eval mode is torch's. Same
+    state_dict as nn.BatchNorm2d."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.FLAX_MOMENTUM
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 def Norm(kind: str, channels: int, num_gn_groups: int = 32) -> nn.Module:
     """GroupNorm (eps 1e-5, as torch and the JAX package set it) or
-    BatchNorm (eps 1e-5; the ported steps run it in eval mode)."""
+    BatchNorm (eps 1e-5, trained as Flax trains it: FlaxBatchNorm2d)."""
     if kind == "GN":
         return nn.GroupNorm(gn_groups(num_gn_groups, channels), channels,
                             eps=1e-5)
     if kind == "BN":
-        return nn.BatchNorm2d(channels, eps=1e-5)
+        return FlaxBatchNorm2d(channels, eps=1e-5)
     if kind in ("none", ""):
         return nn.Identity()
     raise ValueError(f"unknown norm: {kind}")

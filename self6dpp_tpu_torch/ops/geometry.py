@@ -78,6 +78,45 @@ def transform_pts(pts: Tensor, R: Tensor, t: Tensor | None = None) -> Tensor:
     return out
 
 
+def project_pts(pts: Tensor, K: Tensor, R: Tensor, t: Tensor,
+                eps: float = 1e-8) -> Tensor:
+    """Model points (..., N, 3) to pixels (..., N, 2) under K, R (..., 3, 3)
+    and t (..., 3)."""
+    cam = transform_pts(pts, R, t)
+    z = cam[..., 2:3]
+    fx = K[..., 0, 0][..., None, None]
+    fy = K[..., 1, 1][..., None, None]
+    px = K[..., 0, 2][..., None, None]
+    py = K[..., 1, 2][..., None, None]
+    u = fx * cam[..., 0:1] / (z + eps) + px
+    v = fy * cam[..., 1:2] / (z + eps) + py
+    return torch.cat([u, v], dim=-1)
+
+
+def compute_vf(fps_points: Tensor, K: Tensor, R: Tensor, t: Tensor,
+               roi_center: Tensor, roi_scale: Tensor, out_res: int,
+               mask: Tensor | None = None) -> Tensor:
+    """Keypoint vector field in the ROI crop frame: per pixel of the
+    out_res² crop (centred at roi_center, side roi_scale, in image pixels)
+    the unit 2-D direction to each of the f projected keypoints.
+    fps_points (B,f,3), K, R (B,3,3), t (B,3), roi_center (B,2), roi_scale
+    (B,), mask (B,o,o) or None -> (B,o,o,2f) as [u0,v0,u1,v1,...]."""
+    kp = project_pts(fps_points, K, R, t)                   # (B,f,2)
+    x0 = roi_center[:, 0] - roi_scale / 2
+    y0 = roi_center[:, 1] - roi_scale / 2
+    lin = (torch.arange(out_res, dtype=kp.dtype, device=kp.device) + 0.5) \
+        / out_res
+    px = x0[:, None] + roi_scale[:, None] * lin              # (B,o)
+    py = y0[:, None] + roi_scale[:, None] * lin
+    b, o = kp.shape[0], out_res
+    grid = torch.stack([px[:, None, :].expand(b, o, o),
+                        py[:, :, None].expand(b, o, o)], dim=-1)
+    vf = kp[:, None, None] - grid[:, :, :, None, :]          # (B,o,o,f,2)
+    vf = vf / torch.linalg.vector_norm(vf, dim=-1, keepdim=True).clamp_min(1e-8)
+    vf = vf.reshape(b, o, o, -1)
+    return vf if mask is None else vf * mask[..., None]
+
+
 def backproject_depth(depth: Tensor, K: Tensor) -> Tensor:
     """depth (..., H, W), K (..., 3, 3) -> camera-space xyz (..., H, W, 3),
     on a pixel grid of u (column) and v (row) in the depth's dtype."""

@@ -174,3 +174,16 @@ def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
         return RasterOut(*FineRaster.apply(*args, impl))
     fine = fine_raster if impl == "kernel" else fine_raster_plain
     return fine(*args)
+
+
+def compute_vertex_normals(verts: Tensor, faces: Tensor) -> Tensor:
+    """Area-weighted vertex normals of one mesh (V,3), (F,3): each face's
+    edge cross product added to its three vertices (index_add_), then
+    normalised."""
+    faces = faces.long()
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)
+    vn = torch.zeros_like(verts)
+    for i in range(3):
+        vn.index_add_(0, faces[:, i], fn)
+    return vn / torch.linalg.vector_norm(vn, dim=-1, keepdim=True).clamp_min(1e-12)

@@ -215,6 +215,37 @@ def test_rasterize_batch_gradient_through_kernels(cuda_device):
                                    atol=1e-4 * b.abs().max().item(), msg=name)
 
 
+@pytest.mark.cuda
+def test_fine_raster_at_the_normal_render_shape(cuda_device):
+    """B1 as the MaskNormVF pose step launches it for the normal-map
+    pseudo label (stage2_masknormvf, 8 ROIs): 64² output, 32 px tiles,
+    K = 128, the three camera-frame normal channels, no silhouette; its
+    candidates depth-sorted; mask and face_id bit for bit, the rest within
+    1e-4 of the plain version, one launch."""
+    from self6dpp_tpu_torch.config import stage2_masknormvf
+    from self6dpp_tpu_torch.engine import self_engine as SE
+    cfg = stage2_masknormvf()
+    b = SE.stage2_batch(cfg, 8, cuda_device)
+    args, kw = SE.normal_render_args(cfg, b, b["gt_rot"], b["gt_trans"])
+    assert (kw["height"], kw["tile_px"], kw["faces_per_tile"]) == (64, 32, 128)
+    assert not kw["with_prob"] and args[2].shape[-1] == 3
+    o, tp = kw["height"], kw["tile_px"]
+    ftab, cand = TR.raster_inputs(*args, o, o, tp, kw["faces_per_tile"])
+    assert RC.cand_depth_sorted(ftab, cand)
+    call = (ftab, cand, o, o, tp, 1.0, False, True)
+    before = RC.fine_raster.launches
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    assert RC.fine_raster.launches == before + 1
+    ref = RC.fine_raster_plain(*call)
+    assert torch.equal(got.mask, ref.mask)
+    assert torch.equal(got.face_id, ref.face_id)
+    assert (ref.mask.flatten(1).sum(1) > 0).all()
+    for name in ("depth", "attr", "bary"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
+                                   rtol=0, atol=1e-4, msg=name)
+
+
 def _lab_inputs(dev, b, s, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     pred = torch.rand((b, s, s, 3), generator=g).to(dev)

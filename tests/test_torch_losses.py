@@ -302,20 +302,37 @@ def test_self_loss_pose_lab_linear_matches_jax(lpips_pair):
                                 dict(depth_chamfer_lw=1.0), dict(vf_lw=1.0),
                                 dict(norm_lw=1.0), dict(lab_impl="surrogate")])
 def test_self_loss_pose_names_the_later_slice(kw):
-    """vf/norm and the TPU-only LAB modes raise, naming what is missing;
-    LPIPS, MS-SSIM and the chamfer, once of a later slice, now give their
-    terms."""
+    """The TPU-only LAB modes raise, naming what is missing; LPIPS,
+    MS-SSIM and the chamfer, once of a later slice, now give their terms,
+    and so do vf and norm (held against JAX's on seeded student maps and
+    pseudo labels)."""
     _, tcfg = self_cfgs(**kw)
-    ren, pred, pseudo, batch = (
-        {k: torch.from_numpy(v) for k, v in d.items()} for d in loss_inputs())
+    ren, pred, pseudo, batch = loss_inputs()
     ported = {"perceptual_lw": "loss_percep_obj", "ms_ssim_lw": "loss_ms_ssim",
-              "depth_chamfer_lw": "loss_chamfer"}
+              "depth_chamfer_lw": "loss_chamfer", "vf_lw": "loss_vf",
+              "norm_lw": "loss_norm"}
     (name,) = kw
+    if name in ("vf_lw", "norm_lw"):
+        rng = np.random.default_rng(9)
+        key, ch = ("vf", 8) if name == "vf_lw" else ("norm", 3)
+        shape = pred["coor"].shape[:3] + (ch,)
+        pred[key] = rng.normal(0, 1, shape).astype(np.float32)
+        pseudo[key] = rng.normal(0, 1, shape).astype(np.float32)
+        jcfg = jc.SelfSupConfig(**{f.name: getattr(tcfg, f.name)
+                                   for f in dataclasses.fields(tcfg)})
+        to_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+        jld = jsl.compute_self_loss_pose(jcfg, to_j(ren), to_j(pred),
+                                         to_j(pseudo), to_j(batch))
+    ren, pred, pseudo, batch = ({k: torch.from_numpy(v) for k, v in d.items()}
+                                for d in (ren, pred, pseudo, batch))
     if name in ported:
         lp = TL.build_lpips("cpu")
         ld = tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch,
                                         lpips_fn=lp)
         assert torch.isfinite(ld[ported[name]])
+        if name in ("vf_lw", "norm_lw"):
+            np.testing.assert_allclose(ld[ported[name]].item(),
+                                       float(jld[ported[name]]), rtol=RTOL)
         return
     with pytest.raises(ValueError, match="slice|lab_impl"):
         tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch)

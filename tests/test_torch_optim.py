@@ -1,6 +1,7 @@
-"""The port's stage-II solver against the JAX package's, in float32 on the
-CPU: Ranger (nan_to_num, global-norm clip, RAdam, Lookahead) over 8 steps
-of the same gradients, the flat-and-anneal schedule and the EMA decay.
+"""The port's solver against the JAX package's, in float32 on the CPU:
+Ranger (nan_to_num, global-norm clip, RAdam, Lookahead) over 8 steps of
+the same gradients, adam, weight decay and MultiSteps accumulation, the
+flat-and-anneal and warmup-multistep schedules and the EMA decay.
 """
 
 import dataclasses
@@ -42,11 +43,32 @@ def gradients(steps, seed=0):
     return out
 
 
+SOLVER_CASES = {
+    "adam": dict(optimizer="adam"),
+    "adam_wd_accum2": dict(optimizer="adam", weight_decay=1e-2,
+                           ims_per_batch=2, reference_bs=4),
+    "ranger_wd_accum3_multistep": dict(
+        optimizer="ranger", weight_decay=1e-2, ims_per_batch=2,
+        reference_bs=6, lr_sched="warmup_multistep", warmup_iters=2,
+        steps=(0.2, 0.4)),
+}
+
+
 def test_ranger_matches_jax_over_8_steps():
     """8 steps span RAdam's unrectified steps (rho < 5 for t < 6), its
     rectified ones, and the Lookahead sync at step 6."""
-    cfg = dict(optimizer="ranger", warmup_iters=0, base_lr=1e-2,
-               total_iters=10)
+    solver_matches_jax_over_8_steps(dict(optimizer="ranger"))
+
+
+@pytest.mark.parametrize("case", sorted(SOLVER_CASES))
+def test_solver_matches_jax_over_8_steps(case):
+    """adam, and with weight decay and accumulation 8 micro-batches (the
+    parameters move at every k-th), the schedule's milestones inside."""
+    solver_matches_jax_over_8_steps(SOLVER_CASES[case])
+
+
+def solver_matches_jax_over_8_steps(kw):
+    cfg = {**dict(warmup_iters=0, base_lr=1e-2, total_iters=10), **kw}
     tx, _ = jopt.build_optimizer(jc.SolverConfig(**cfg))
     rng = np.random.default_rng(1)
     p0 = {k: rng.standard_normal(v).astype(np.float32)
@@ -74,14 +96,35 @@ def test_ranger_matches_jax_over_8_steps():
     moved = max((p.detach().numpy() - p0[k]).__abs__().max()
                 for p, k in zip(tparams, sorted(SHAPES)))
     assert moved > 100 * (ATOL + RTOL), moved
+    accum = cfg.get("reference_bs", 24) // cfg.get("ims_per_batch", 24)
+    assert opt.count == 8 // max(accum, 1)
 
 
 def test_build_optimizer_names_what_is_not_ported():
+    """adam, warmup_multistep, weight decay and accumulation, once of a
+    later slice, now build (and match JAX's, above); the other optimizers
+    and an unknown schedule raise."""
     p = [torch.nn.Parameter(torch.zeros(2))]
     for kw in (dict(optimizer="adam"), dict(lr_sched="warmup_multistep"),
                dict(weight_decay=1e-4), dict(ims_per_batch=8, reference_bs=24)):
+        opt = topt.build_optimizer(tc.SolverConfig(**kw), p)
+        assert opt.core == tc.SolverConfig(**kw).optimizer
+        assert opt.accum == (3 if "reference_bs" in kw else 1)
+    for kw in (dict(optimizer="sgd"), dict(optimizer="radam"),
+               dict(optimizer="adamw"), dict(lr_sched="constant")):
         with pytest.raises(ValueError):
             topt.build_optimizer(tc.SolverConfig(**kw), p)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(warmup_iters=10, steps=(0.3,)),
+                                dict(step_gamma=0.5, warmup_factor=0.1)])
+def test_warmup_multistep_matches_jax(kw):
+    jf = jsched.warmup_multistep(jc.SolverConfig(**kw))
+    tf = tsched.warmup_multistep(tc.SolverConfig(**kw))
+    for step in (0, 1, 9, 10, 500, 999, 1000, 29_999, 30_000, 50_000,
+                 74_999, 75_000, 99_999, 120_000):
+        np.testing.assert_allclose(float(tf(step)), float(jf(step)),
+                                   rtol=1e-6, atol=0, err_msg=str(step))
 
 
 @pytest.mark.parametrize("kw", [
