@@ -14,7 +14,12 @@
     mode, 24 images, bf16) and at gdrn_lm_masknormvf;
   * the stage-II pose step of the MaskNormVF variant (stage2_masknormvf:
     vf/norm heads and pseudo labels, the normal map rendered through B1),
-    and the geo-mode and synsup steps at stage2_pose_flagship widths.
+    and the geo-mode and synsup steps at stage2_pose_flagship widths;
+  * the DeepIM train step at lm_flownet (train_deepim.sh: FlowNetS, 512²
+    zoom, 4 iterations, 8 ROIs, Ranger; flow and mask labels from a second
+    render at the GT pose) and the stage-II pose step with the in-step
+    refiners at stage2_refined_flagship (the pseudo pose refined by the
+    lm_flownet DeepIM, the RepjRefiner weak loss on 64² renders).
 
     python3 chip_smoke.py
 
@@ -62,7 +67,23 @@ exits non-zero):
      steps with two B1, one B2 and one B3 launch each (one B1 from the
      normal render);
  12. time the geo-mode and synsup steps at stage2_pose_flagship widths: no
-     kernel launched, every loss finite.
+     kernel launched, every loss finite;
+ 13. run two float32 DeepIM train steps through B1 and two through the
+     plain fine stage (losses and parameters agree; the parameters moved;
+     a black render ends elsewhere), hold B1 at the GT render's shape
+     against its plain version (mask and face_id bit for bit), and time
+     bf16 train steps (CUDA-event phases: render, flow label, network
+     forward, loss, backward, solver + EMA) with 8 B1 and 0 B2 launches
+     each, all at the 512² zoom;
+ 14. hold B1 and B2 at the repj renders' shape (64², 16 px tiles, K = 64,
+     the silhouette) against their plain versions on one refined step's
+     inputs, B2 on the cotangents the repj losses send; run phase 6's
+     float32 checks on the refined step (with the refiner, the loss_repj_*
+     terms); time bf16 refined steps (with the refine and repj spans),
+     with 11 B1 (1 student, 4 refiner, 6 repj), 4 B2 (1 student, 3 repj)
+     and 1 B3 launch each;
+ 15. run two float32 DeepIM train steps (64² zoom, 2 iterations, 2 ROIs)
+     on the card and on the CPU: losses and parameters agree.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -967,15 +988,17 @@ def max_abs_diff(a, b):
     return max((a[k] - b[k]).abs().max().item() for k in a)
 
 
-def run_steps(cfg, device, batch_size, n, impl="kernel", built=None):
+def run_steps(cfg, device, batch_size, n, impl="kernel", built=None,
+              refiner=None):
     """n stage-II steps from the seeded weights (`built`, build_stage2's
-    result for cfg, or a new one): (initial params, metrics per step, final
-    params)."""
+    result for cfg, or a new one), with the DeepIM refiner `refiner` when
+    given: (initial params, metrics per step, final params)."""
     from self6dpp_tpu_torch.engine import self_engine as se
     model, state, batch, lpips = built or se.build_stage2(
         cfg, batch_size, device, seed=SEED)
     init = params_of(model)
-    step = se.make_self_train_step(cfg, model, lpips, impl=impl)
+    step = se.make_self_train_step(cfg, model, lpips, impl=impl,
+                                   refiner=refiner)
     metrics = []
     for _ in range(n):
         state, m = step(state, batch)
@@ -995,11 +1018,11 @@ def loss_err(a, b):
     return max(abs(a[k] - b[k]) / max(abs(b[k]), floor) for k in a)
 
 
-def check_stage2_fp32(cfg32, device, batch_size, built):
+def check_stage2_fp32(cfg32, device, batch_size, built, refiner=None):
     """Phase 6: two float32 steps through the kernels (on `built`, the
     untouched build_stage2 result phase 5 read its inputs from) and two
-    through the plain versions, from the same weights and batch, with TF32
-    off and
+    through the plain versions, from the same weights and batch (and the
+    refiner, when given), with TF32 off and
     cuDNN deterministic: losses within TOL_S2_LOSS, parameters within
     TOL_S2_PARAMS. The check can fail: the parameters moved more than
     S2_MOVED x TOL_S2_PARAMS, and a step with every loss that reads the
@@ -1011,11 +1034,13 @@ def check_stage2_fp32(cfg32, device, batch_size, built):
     torch.backends.cudnn.deterministic = True
     try:
         init, mk, pk = run_steps(cfg32, device, batch_size, 2, "kernel",
-                                 built)
-        _, mp, pp = run_steps(cfg32, device, batch_size, 2, "plain")
+                                 built, refiner)
+        _, mp, pp = run_steps(cfg32, device, batch_size, 2, "plain",
+                              refiner=refiner)
         ctrl = dataclasses.replace(cfg32, self_sup=dataclasses.replace(
             cfg32.self_sup, **{k: 0.0 for k in S2_RENDER_LOSSES}))
-        _, mc, pc = run_steps(ctrl, device, batch_size, 2, "kernel")
+        _, mc, pc = run_steps(ctrl, device, batch_size, 2, "kernel",
+                              refiner=refiner)
     finally:
         torch.backends.cudnn.deterministic = det
     for m in mk:
@@ -1042,7 +1067,9 @@ def check_stage2_fp32(cfg32, device, batch_size, built):
 
 def timed_steps(step, state, batch, steps):
     """`steps` steps (host clock around each, ending in a synchronize) with
-    CUDA events at the step's phase boundaries: (times, phases, metrics)."""
+    CUDA events at the step's phase boundaries: (times, phases, metrics).
+    A phase marked more than once in a step (the DeepIM refine loop's, once
+    per iteration) sums its spans."""
     from self6dpp_tpu_torch.engine.gdrn_engine import event_marker
     times, phases, metrics = [], [], []
     for _ in range(steps):
@@ -1053,8 +1080,10 @@ def timed_steps(step, state, batch, steps):
         state, m = step(state, batch, mark)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        phases.append({b[0]: a[1].elapsed_time(b[1])
-                       for a, b in zip(marks, marks[1:])})
+        spans = {}
+        for a, b in zip(marks, marks[1:]):
+            spans[b[0]] = spans.get(b[0], 0.0) + a[1].elapsed_time(b[1])
+        phases.append(spans)
         metrics.append(m)
     return times, phases, metrics
 
@@ -1603,6 +1632,452 @@ def normal_render_kernel_line(nr, s3):
             "library_ms": None}
 
 
+# ---- DeepIM training, the refined stage-II step, card vs CPU (13-15) -----
+
+DI_TIMED_STEPS = 10               # bf16 DeepIM train steps after one warm-up
+# per DeepIM train step at n_iter_train 4: the estimate's and the ground
+# truth's render per iteration (B1), no backward through a render
+DI_LAUNCHES = {"fine_raster_fwd": 8, "fine_raster_bwd": 0, "lab_value_grad": 0}
+DI_LR = 1e-3                      # phase 13's fp32 steps: full lr, no warm-up
+TOL_DI_LOSS = 1e-4                # fp32 DeepIM train losses, kernel vs plain
+TOL_DI_PARAMS = 1e-5              # fp32 params after 2 steps, kernel vs plain
+DI_MOVED = 20                     # the steps move the params > 20x that
+TOL_DI_CPU = 1e-4                 # phase 15: card vs CPU losses (relative)
+TOL_DI_CPU_PARAMS = 1e-5          # and params
+S4_TIMED_STEPS = 10               # bf16 refined stage-II steps
+# per refined stage-II step: the student render (B1, B2), the refiner's 4
+# iterations (B1 at 512²), the repj renders: 3 anchors and 3 reprojections
+# (B1 at 64², B2 on the reprojections), LAB (B3)
+S4_LAUNCHES = {"fine_raster_fwd": 11, "fine_raster_bwd": 4,
+               "lab_value_grad": 1}
+
+
+@contextlib.contextmanager
+def launches_by_height():
+    """While active, tallies B1 and B2 launches by the image height of the
+    call ({kernel: {height: n}}): 512 (DeepIM), 256 (the student render)
+    and 64 (repj) tell the shapes of one step apart."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    tally = {"fine_raster_fwd": {}, "fine_raster_bwd": {}}
+    fine, bwd = RC._fine, RC.fine_raster_bwd
+
+    def add(kernel, height, n):
+        t = tally[kernel]
+        t[height] = t.get(height, 0) + n
+
+    def fine_counted(ftab, cand, height, *args):
+        before = RC.fine_raster.launches
+        out = fine(ftab, cand, height, *args)
+        add("fine_raster_fwd", height, RC.fine_raster.launches - before)
+        return out
+
+    # the wrapper takes the counter's place (the kernel's wrapper adds to
+    # the module attribute it is named by) and hands it back after
+    def bwd_counted(*args):
+        before = bwd_counted.launches
+        out = bwd(*args)
+        add("fine_raster_bwd", args[5], bwd_counted.launches - before)
+        return out
+    bwd_counted.launches = bwd.launches
+    RC._fine, RC.fine_raster_bwd = fine_counted, bwd_counted
+    try:
+        yield tally
+    finally:
+        bwd.launches = bwd_counted.launches
+        RC._fine, RC.fine_raster_bwd = fine, bwd
+
+
+def deepim_train_batch(request):
+    """A DeepIM training batch from a request (make_request: the GT poses
+    the observation was rendered at, perturbed initial poses): PM points
+    (every 5th vertex, up to 512), extents and no symmetry."""
+    verts = request["verts"]
+    b = verts.shape[0]
+    eye = torch.eye(3, device=verts.device)
+    return dict(request, gt_points=verts[:, ::5][:, :512].contiguous(),
+                roi_extent=verts.amax(1) - verts.amin(1),
+                sym_rots=eye.expand(b, 1, 3, 3).contiguous(),
+                sym_valid=torch.ones((b, 1), dtype=torch.bool,
+                                     device=verts.device))
+
+
+def deepim_train_cfg(cfg, dtype_name, lr=None):
+    """cfg in the given compute dtype; with `lr`, that base rate from the
+    first step (no warm-up)."""
+    cfg = dataclasses.replace(cfg, dist=dataclasses.replace(
+        cfg.dist, compute_dtype=dtype_name))
+    if lr is not None:
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, base_lr=lr, warmup_method="none"))
+    return cfg
+
+
+def run_deepim_train(cfg, device, batch, n, raster_kw=None):
+    """n DeepIM train steps of the seeded model (the JAX initialisers from
+    SEED, identity-biased pose heads) on `batch`: (initial params, losses
+    per step, final params), all on the CPU."""
+    from self6dpp_tpu_torch.engine import deepim_engine as de
+    model = de.build_deepim(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED),
+                            train=True)
+    model.init_identity_heads_()
+    state = de.init_state(cfg, model)
+    step = de.make_train_step(cfg, model, device=device, raster_kw=raster_kw)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    init = cpu(params_of(model))
+    metrics = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return init, metrics, cpu(params_of(model))
+
+
+def check_deepim_train_fp32(cfg, device, batch):
+    """Phase 13: two float32 DeepIM train steps (TF32 off, cuDNN
+    deterministic) through kernel B1 and two through the plain fine stage:
+    losses within TOL_DI_LOSS, parameters within TOL_DI_PARAMS. The check
+    can fail: the steps move the parameters more than DI_MOVED x
+    TOL_DI_PARAMS, and the same steps on a black render (the plain fine
+    stage with its attributes zeroed) end more than TOL_DI_PARAMS away."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    cfg32 = deepim_train_cfg(cfg, "float32", DI_LR)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    plain = RC.fine_raster_plain
+    try:
+        init, mk, pk = run_deepim_train(cfg32, device, batch, 2)
+        _, mp, pp = run_deepim_train(cfg32, device, batch, 2,
+                                     {"impl": "plain"})
+        RC.fine_raster_plain = _perturbed_plain("attr zeroed")
+        _, mc, pc = run_deepim_train(cfg32, device, batch, 2,
+                                     {"impl": "plain"})
+    finally:
+        RC.fine_raster_plain = plain
+        torch.backends.cudnn.deterministic = det
+    for m in mk:
+        require(all(np.isfinite(v) for v in m.values()), "non-finite loss", m)
+    out = {"losses_kernel": mk, "losses_plain": mp, "losses_control": mc,
+           "loss_rel_err": max(loss_err(a, b) for a, b in zip(mk, mp)),
+           "params_kernel_vs_plain_max_abs": max_abs_diff(pk, pp),
+           "params_moved_max_abs": max_abs_diff(pk, init),
+           "params_vs_control_max_abs": max_abs_diff(pk, pc), "lr": DI_LR}
+    require({"loss_flow", "loss_mask", "loss_PM_R", "loss_trans_z"}
+            <= set(mk[0]), "DeepIM train terms", sorted(mk[0]))
+    require(out["loss_rel_err"] <= TOL_DI_LOSS, "DeepIM fp32 losses", out)
+    require(out["params_kernel_vs_plain_max_abs"] <= TOL_DI_PARAMS,
+            "DeepIM fp32 params", out)
+    require(out["params_moved_max_abs"] > DI_MOVED * TOL_DI_PARAMS,
+            "DeepIM steps left the params where they were", out)
+    require(out["params_vs_control_max_abs"] > TOL_DI_PARAMS,
+            "a black render did not move the DeepIM step", out)
+    return out
+
+
+def b1_row(name, d, launches):
+    """A `kernels` entry of B1 at one of its shapes."""
+    return {"name": name, "route": "cuda",
+            "source": "self6dpp_tpu_torch/csrc/fine_raster_fwd.cu",
+            "replaces": "self6dpp_tpu/ops/raster_pallas.py:420",
+            "launches": launches, "max_abs_err": d["max_abs_err_all"],
+            "ms": d["ms"], "graph_ms": d["graph_ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None}
+
+
+def check_deepim_gt_render(cfg, batch):
+    """Phase 13: B1 at the DeepIM train step's ground-truth render (the
+    first iteration's zoomed frame, the GT pose, hard, 16 px tiles, K =
+    128) against its plain version: mask and face_id bit for bit, the rest
+    within TOL_KERNEL; candidates depth-sorted; timed, with its bound."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    d, r = cfg.deepim, cfg.renderer
+    h, w = d.input_h, d.input_w
+    _, Kz = zoom_frame(cfg, batch)
+    args = (batch["verts"], batch["faces"], batch["colors"], Kz,
+            batch["gt_rot"], batch["gt_trans"])
+    ftab, cand = R.raster_inputs(*args, h, w, r.tile_px, r.faces_per_tile)
+    require(RC.cand_depth_sorted(ftab, cand), "GT render: cand order")
+    call = (ftab, cand, h, w, r.tile_px, 1.0, False, True)
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    ref = RC.fine_raster_plain(*call)
+    v = compare_raster(got, ref, "DeepIM GT render B1")
+    require(torch.equal(got.mask, ref.mask)
+            and torch.equal(got.face_id, ref.face_id),
+            "GT render: mask/face_id not bit for bit")
+    v["max_abs_err_all"] = max(v["max_abs_err"].values())
+    v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
+    v["graph_ms"] = graph_ms(lambda: RC.fine_raster(*call))
+    v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
+                            **PLAIN_TIMING)
+    B, F, C = ftab.shape
+    D = (C - RC._GEO) // 3
+    n = raster_counts(ftab, cand, ref.mask, r.tile_px, h, w)
+    v.update(bound(n["face_rows_read"] * C * 4 + cand.numel() * 4
+                   + B * h * w * (4 + D + 3) * 4, b1_ops(n, with_prob=False)))
+    v["counts"] = {k: x for k, x in n.items() if not k.startswith("_")}
+    return v
+
+
+def time_deepim_train(cfg, device, batch, steps=DI_TIMED_STEPS):
+    """Phase 13: DeepIM train steps in the configured compute dtype: one
+    warm-up step, then `steps` timed (timed_steps: CUDA events at each
+    iteration's render, flow label, network forward and loss, then the
+    backward and the solver + EMA), the launch counts set to 0 just before
+    and read just after: DI_LAUNCHES per step, every B1 at the 512² zoom;
+    every loss finite."""
+    from self6dpp_tpu_torch.engine import deepim_engine as de
+    cfg = deepim_train_cfg(cfg, cfg.dist.compute_dtype)
+    model = de.build_deepim(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED),
+                            train=True)
+    model.init_identity_heads_()
+    state = de.init_state(cfg, model)
+    step = de.make_train_step(cfg, model, device=device)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with launches_by_height() as tally:
+        times, phases, metrics = timed_steps(step, state, batch, steps)
+    launches = kernel_launches()
+    for name, k in launches.items():
+        require(k == DI_LAUNCHES[name] * steps, "DeepIM train launches",
+                name, k, steps)
+    require(tally["fine_raster_fwd"] == {cfg.deepim.input_h: 8 * steps},
+            "DeepIM train B1 shapes", tally)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "non-finite DeepIM loss", m)
+    out = {**summary(times, phases), "config": cfg.exp_name,
+           "batch": len(batch["init_rot"]),
+           "compute_dtype": cfg.dist.compute_dtype,
+           "iterations": cfg.deepim.n_iter_train,
+           "ms_range": [min(times), max(times)], "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_refiner(device, dtype_name):
+    """The stage-II step's DeepIM refiner: lm_flownet() in the given
+    compute dtype, its weights the JAX initialisers' from SEED + 2 with
+    identity-biased pose heads, in eval mode: (model, its Config)."""
+    from self6dpp_tpu_torch.config import lm_flownet
+    from self6dpp_tpu_torch.engine import deepim_engine as de
+    rcfg = deepim_train_cfg(lm_flownet(), dtype_name)
+    model = de.build_deepim(rcfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    model.init_identity_heads_()
+    return model, rcfg
+
+
+def check_repj_kernels(cfg, built):
+    """Phase 14: B1 and B2 at the repj renders' shape on the step's own
+    inputs: the student's forward on `built` (build_stage2's), the repj
+    weak loss (self_engine.repj_terms) with its six renders recorded, the
+    cotangents the loss sends to the three reprojected renders. B1 against
+    its plain version on all six (mask and face_id bit for bit; the
+    reprojections' saved keep bit for bit against the slot-order product),
+    B2 on the reprojections with those cotangents within TOL_B2; the
+    reprojections' B1 (with keep) and B2 timed per scale, with bounds."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.gdrn_engine import autocast, model_inputs
+    from self6dpp_tpu_torch.models import repj_refiner as RR
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    _, state, batch, _ = built
+    net = state.model.eval()
+    with autocast(cfg, batch["roi_img"].device):
+        out = net(*model_inputs(batch))
+    out = {k: v.float() for k, v in out.items()}
+    records, inner = [], RR.rasterize_batch
+
+    def recorded(*args, **kw):
+        res = inner(*args, **kw)
+        records.append((args, kw, res))
+        return res
+    RR.rasterize_batch = recorded
+    try:
+        ld = se.repj_terms(cfg, batch, out)
+    finally:
+        RR.rasterize_batch = inner
+    require(len(records) == 6, "repj renders", len(records))
+    reps = [r for r in records if r[2].prob.requires_grad]
+    require(len(reps) == 3, "repj reprojected renders", len(reps))
+    outs = [x for _, _, res in reps for x in (res.prob, res.depth, res.attr)]
+    grads = torch.autograd.grad(sum(ld.values()), outs, allow_unused=True)
+    grads = [torch.zeros_like(o) if g is None else g.contiguous()
+             for o, g in zip(outs, grads)]
+    kw0 = records[0][1]
+    n, tp, K, sigma = (kw0["height"], kw0["tile_px"], kw0["faces_per_tile"],
+                       kw0["sigma_px"])
+    f32 = lambda x: torch.as_tensor(x).detach().float()
+    per_call, errs = [], {"b1": 0.0, "b2_rel": 0.0}
+    for i, (args, _, res) in enumerate(records):
+        ftab, cand = R.raster_inputs(*(f32(a) if j != 1 else a
+                                       for j, a in enumerate(args)),
+                                     n, n, tp, K)
+        require(RC.cand_depth_sorted(ftab, cand), "repj: cand order", i)
+        call = (ftab, cand, n, n, tp, sigma, True, True)
+        got, keep = RC._fine(*call, True)
+        torch.cuda.synchronize()
+        ref = RC.fine_raster_plain(*call)
+        v = compare_raster(got, ref, f"repj B1 {i}")
+        require(torch.equal(got.mask, ref.mask)
+                and torch.equal(got.face_id, ref.face_id), "repj B1 bits", i)
+        errs["b1"] = max(errs["b1"], *v["max_abs_err"].values())
+        if not res.prob.requires_grad:
+            continue
+        keep_ref = RC.keep_slot_order_plain(ftab, cand, n, n, tp, sigma)
+        require(torch.equal(keep.view(torch.int32),
+                            keep_ref.view(torch.int32)), "repj keep bits", i)
+        k = len(per_call)
+        cts = grads[3 * k:3 * k + 3]
+        bcall = (ftab, cand, *cts, n, n, tp, sigma, True, True)
+        saved = (got.face_id, keep)
+        with scatter_counted() as scatters:
+            g2 = RC.fine_raster_bwd(*bcall, saved)
+            torch.cuda.synchronize()
+        require(scatters["n"] == 0, "repj B2 ran the scatter")
+        r2 = RC.fine_raster_bwd_plain(*bcall)
+        scale = r2.abs().max().item()
+        require(scale > 0, "repj B2: zero gradient", i)
+        errs["b2_rel"] = max(errs["b2_rel"],
+                             (g2 - r2).abs().max().item() / scale)
+        errs["b2_abs"] = max(errs.get("b2_abs", 0.0),
+                             (g2 - r2).abs().max().item())
+        B, F, C = ftab.shape
+        D = (C - RC._GEO) // 3
+        cnt = raster_counts(ftab, cand, ref.mask, tp, n, n, cts)
+        b1 = bound(cnt["face_rows_read"] * C * 4 + cand.numel() * 4
+                   + B * n * n * (4 + D + 3) * 4, b1_ops(cnt))
+        b2 = bound(cnt["face_rows_read"] * C * 4 + cand.numel() * 4
+                   + cnt["occupied_tiles"] * tp * tp * (2 + D) * 4
+                   + B * F * C * 4, b2_ops(cnt))
+        per_call.append({
+            "B1": {"ms": cuda_ms(lambda: RC._fine(*call, True)),
+                   "graph_ms": graph_ms(lambda: RC._fine(*call, True)),
+                   "plain_ms": cuda_ms(lambda: RC.fine_raster_plain(*call),
+                                       **PLAIN_TIMING), **b1},
+            "B2": {"ms": cuda_ms(lambda: RC.fine_raster_bwd(*bcall, saved)),
+                   "graph_ms": graph_ms(lambda: RC.fine_raster_bwd(
+                       *bcall, saved)),
+                   "plain_ms": cuda_ms(lambda: RC.fine_raster_bwd_plain(
+                       *bcall), **PLAIN_TIMING), **b2},
+            "counts": {k2: x for k2, x in cnt.items()
+                       if not k2.startswith("_")}})
+    require(errs["b1"] <= TOL_KERNEL and errs["b2_rel"] <= TOL_B2,
+            "repj kernels vs plain", errs)
+    mean = lambda kern, key: float(np.mean([c[kern][key] for c in per_call]))
+    rows = {kern: {key: mean(kern, key) for key in
+                   ("ms", "graph_ms", "plain_ms", "bound_ms")}
+            for kern in ("B1", "B2")}
+    for kern in ("B1", "B2"):
+        rows[kern]["bound_by"] = per_call[-1][kern]["bound_by"]
+    rows["B1"]["max_abs_err_all"] = errs["b1"]
+    rows["B2"]["max_abs_err_all"] = errs["b2_abs"]
+    return {"shape": {"batch": len(out["rot"]), "res": n, "tile_px": tp,
+                      "K": K, "sigma_px": sigma},
+            "per_scale": per_call, "errors": errs, "mean_per_call": rows,
+            "losses": {k: float(v.detach()) for k, v in ld.items()}}
+
+
+def time_stage2_refined(cfg, device, batch_size, steps=S4_TIMED_STEPS):
+    """Phase 14: refined stage-II steps (the DeepIM refiner in the compute
+    dtype, the repj weak loss) in the configured compute dtype: one warm-up
+    step, then `steps` timed (timed_steps, with the refine and repj spans),
+    the launch counts set to 0 just before and read just after:
+    S4_LAUNCHES per step, by shape 1 student, 4 refiner and 6 repj B1
+    launches and 1 student and 3 repj B2 launches; every loss finite."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    model, state, batch, lpips = se.build_stage2(cfg, batch_size, device,
+                                                 seed=SEED)
+    refiner = build_refiner(device, cfg.dist.compute_dtype)
+    step = se.make_self_train_step(cfg, model, lpips, refiner=refiner)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with launches_by_height() as tally, scatter_counted() as scatters:
+        times, phases, metrics = timed_steps(step, state, batch, steps)
+    launches = kernel_launches()
+    require(scatters["n"] == 0, "the step's B2 ran the scatter", scatters)
+    for name, k in launches.items():
+        require(k == S4_LAUNCHES[name] * steps, "refined step launches",
+                name, k, steps)
+    d = refiner[1].deepim
+    want = {"fine_raster_fwd": {}, "fine_raster_bwd": {}}
+    for kern, height, per_step in (
+            ("fine_raster_fwd", cfg.model.input_res, 1),
+            ("fine_raster_fwd", d.input_h, d.n_iter_test),
+            ("fine_raster_fwd", cfg.self_sup.repj_render_res, 6),
+            ("fine_raster_bwd", cfg.model.input_res, 1),
+            ("fine_raster_bwd", cfg.self_sup.repj_render_res, 3)):
+        want[kern][height] = want[kern].get(height, 0) + per_step * steps
+    require(tally == want, "refined step launches by shape", tally, want)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "non-finite refined-step loss", m)
+    require({"loss_repj_miou_1", "loss_PM_R_repj"} <= set(metrics[-1]),
+            "repj terms", sorted(metrics[-1]))
+    out = {**summary(times, phases), "config": cfg.exp_name,
+           "batch": batch_size, "compute_dtype": cfg.dist.compute_dtype,
+           "ms_range": [min(times), max(times)], "launches": launches,
+           "launches_by_height": tally,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    del model, state, step, refiner
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_deepim_card_vs_cpu(cfg, device, request):
+    """Phase 15: two float32 DeepIM train steps of `cfg` cut to a 64² zoom,
+    2 iterations and 2 ROIs (FlowNetS at full widths) on the card (TF32
+    off, cuDNN deterministic) and on the CPU (one thread), from the same
+    seeded weights and batch: losses within TOL_DI_CPU, parameters within
+    TOL_DI_CPU_PARAMS, and the parameters moved past 10x that."""
+    small = dataclasses.replace(cfg, deepim=dataclasses.replace(
+        cfg.deepim, input_h=64, input_w=64, n_iter_train=2))
+    small = deepim_train_cfg(small, "float32", DI_LR)
+    batch = deepim_train_batch({k: v[:2] if k not in ("faces",) else v
+                                for k, v in request.items()})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        init, mg, pg = run_deepim_train(small, device, batch, 2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = torch.device("cpu")
+        _, mc, pc = run_deepim_train(
+            small, cpu, {k: v.to(cpu) for k, v in batch.items()}, 2)
+    finally:
+        torch.set_num_threads(threads)
+    out = {"input_hw": [64, 64], "iterations": 2, "batch": 2,
+           "losses_card": mg, "losses_cpu": mc,
+           "loss_rel_err": max(loss_err(a, b) for a, b in zip(mg, mc)),
+           "params_card_vs_cpu_max_abs": max_abs_diff(pg, pc),
+           "params_moved_max_abs": max_abs_diff(pg, init)}
+    require(out["loss_rel_err"] <= TOL_DI_CPU, "DeepIM card vs CPU losses",
+            out)
+    require(out["params_card_vs_cpu_max_abs"] <= TOL_DI_CPU_PARAMS,
+            "DeepIM card vs CPU params", out)
+    require(out["params_moved_max_abs"] > 10 * TOL_DI_CPU_PARAMS,
+            "DeepIM card vs CPU: the params did not move", out)
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1718,7 +2193,8 @@ def main() -> int:
     probe_path = {k: v["ms_per_step"] for k, v in probe.items()}
 
     from self6dpp_tpu_torch.config import (gdrn_flagship, gdrn_lm_masknormvf,
-                                           stage2_masknormvf)
+                                           stage2_masknormvf,
+                                           stage2_refined_flagship)
     t0 = time.perf_counter()
     s1_cpu = check_stage1_card_vs_cpu(device)
     print(f"stage-I fp32 card vs CPU: {json.dumps(s1_cpu)}", flush=True)
@@ -1752,6 +2228,40 @@ def main() -> int:
     gs = time_geo_synsup(s2, device, S2_BATCH, GEO_TIMED_STEPS)
     print(f"geo and synsup steps: {json.dumps(gs)}", flush=True)
     clock["geo_synsup_phase12_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    di_batch = deepim_train_batch(requests[0])
+    with cand_order_checked(cand_checks):
+        di_fp32 = check_deepim_train_fp32(cfg, device, di_batch)
+        print(f"DeepIM train fp32 steps: {json.dumps(di_fp32)}", flush=True)
+        di_gt = check_deepim_gt_render(cfg, di_batch)
+        print(f"DeepIM GT render B1 vs plain: {json.dumps(di_gt)}", flush=True)
+    di_steps = time_deepim_train(cfg, device, di_batch)
+    print(f"DeepIM train bf16 steps: {json.dumps(di_steps)}", flush=True)
+    clock["deepim_train_phase13_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    s4 = stage2_cfg("bfloat16", base=stage2_refined_flagship())
+    s4_32 = stage2_cfg("float32", lr=S2_LR, base=s4)
+    s4_built = se.build_stage2(s4_32, S2_BATCH, device, seed=SEED)
+    with cand_order_checked(cand_checks):
+        repj = check_repj_kernels(s4_32, s4_built)
+        print(f"repj B1/B2 vs plain: {json.dumps(repj)}", flush=True)
+        _, s4_fp32 = check_stage2_fp32(s4_32, device, S2_BATCH, s4_built,
+                                       build_refiner(device, "float32"))
+    del s4_built
+    require(all({"loss_repj_miou_1", "loss_PM_T_repj"} <= set(m)
+                for m in s4_fp32["losses_kernel"] + s4_fp32["losses_plain"]),
+            "refined fp32 steps: repj terms")
+    print(f"refined stage-II fp32 steps: {json.dumps(s4_fp32)}", flush=True)
+    s4_steps = time_stage2_refined(s4, device, S2_BATCH)
+    print(f"refined stage-II bf16 steps: {json.dumps(s4_steps)}", flush=True)
+    clock["stage2_refined_phase14_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    di_cpu = check_deepim_card_vs_cpu(cfg, device, requests[1])
+    print(f"DeepIM train fp32 card vs CPU: {json.dumps(di_cpu)}", flush=True)
+    clock["deepim_card_vs_cpu_phase15_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -1761,7 +2271,11 @@ def main() -> int:
               "stage1_card_vs_cpu": s1_cpu, "stage1_steps": s1,
               "stage1_masknormvf_steps": s1_vf, "normal_render": nr,
               "masknormvf_fp32": s3_fp32, "masknormvf_steps": s3_steps,
-              "geo_synsup_steps": gs, "clock": clock,
+              "geo_synsup_steps": gs, "deepim_train_fp32": di_fp32,
+              "deepim_gt_render": di_gt, "deepim_train_steps": di_steps,
+              "repj_kernels": repj, "stage2_refined_fp32": s4_fp32,
+              "stage2_refined_steps": s4_steps,
+              "deepim_train_card_vs_cpu": di_cpu, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -1769,6 +2283,17 @@ def main() -> int:
     kernels = [kernel] + stage2_kernel_lines(k5, s2_launches, k8,
                                              probe_launches)
     kernels.append(normal_render_kernel_line(nr, s3_steps))
+    by_h = s4_steps["launches_by_height"]
+    n4 = s4.self_sup.repj_render_res
+    kernels.append(b1_row("fine_raster_fwd[deepim_train]", di_gt,
+                          di_steps["launches"]["fine_raster_fwd"]))
+    kernels.append(b1_row("fine_raster_fwd[repj]", repj["mean_per_call"]["B1"],
+                          by_h["fine_raster_fwd"][n4]))
+    kernels.append({**b1_row("fine_raster_bwd[repj]",
+                             repj["mean_per_call"]["B2"],
+                             by_h["fine_raster_bwd"][n4]),
+                    "source": "self6dpp_tpu_torch/csrc/fine_raster_bwd.cu",
+                    "replaces": "self6dpp_tpu/ops/raster_pallas.py:459"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
@@ -1786,6 +2311,19 @@ def main() -> int:
                                        "peak_mem_gib")},
                                "geo_step_ms": gs["geo"]["ms_per_step"],
                                "synsup_step_ms": gs["synsup"]["ms_per_step"],
+                               "deepim_train_step": {
+                                   k: di_steps[k] for k in (
+                                       "config", "batch", "iterations",
+                                       "compute_dtype", "ms_per_step",
+                                       "ms_range", "phase_ms_median",
+                                       "launches", "peak_mem_gib")},
+                               "stage2_refined_step": {
+                                   k: s4_steps[k] for k in (
+                                       "config", "batch", "compute_dtype",
+                                       "ms_per_step", "ms_range",
+                                       "phase_ms_median", "launches",
+                                       "launches_by_height",
+                                       "peak_mem_gib")},
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

@@ -130,12 +130,13 @@ class PoseNetConfig:
 class DeepIMConfig:
     """DeepIM render-and-compare refiner (core/deepim/models/DeepIM_FlowNet.py).
     The refine loop re-renders the mesh every iteration."""
-    # DeepIM_FlowNet | DeepIM_Shared | DeepIM_Unshared (only FlowNet is ported)
+    # DeepIM_FlowNet | DeepIM_Shared | DeepIM_Unshared
     name: str = "DeepIM_FlowNet"
     num_classes: int = 13
     input_h: int = 512
     input_w: int = 512
     in_channels: int = 6            # 6 = rgb ren+obs; 8 adds mask channels
+    # flownets, or any ResNetBackbone arch for the Shared/Unshared variants
     backbone: str = "flownets"
     use_bn: bool = False
     flat_op: str = "avg"            # flatten | avg | avg-max | avg-max-min
@@ -149,6 +150,8 @@ class DeepIMConfig:
     mask_class_aware: bool = False
     with_flow: bool = True          # supervise flow4
     n_iter_train: int = 4
+    # the refine count ramps from 1 to n_iter_train over the first
+    # n_iter_train_warm_iters iterations (deepim_engine.warm_n_iter); 0: off
     n_iter_train_warm_iters: int = 0
     n_iter_test: int = 4
     zoom_lamb: float = 1.4
@@ -189,11 +192,14 @@ class DistConfig:
 
 @dataclass(frozen=True)
 class SolverConfig:
-    optimizer: str = "ranger"       # ranger | adam (the others raise)
+    # ranger | radam | adam | adamw | adabelief | sgd | sgd_gc | madgrad |
+    # adamp | sgdp
+    optimizer: str = "ranger"
     base_lr: float = 1e-4
     weight_decay: float = 0.0
     momentum: float = 0.9
-    lr_sched: str = "flat_and_anneal"   # flat_and_anneal | warmup_multistep
+    # flat_and_anneal | warmup_multistep; any other name: base_lr throughout
+    lr_sched: str = "flat_and_anneal"
     anneal_method: str = "cosine"   # cosine | step | poly | linear
     anneal_point: float = 0.72
     warmup_iters: int = 1000
@@ -248,8 +254,17 @@ class SelfSupConfig:
     geo_aug_trans: tuple[float, float] = (-0.1, 0.1)
     geo_aug_crop: float = 0.1
     pseudo_pose_type: str = "pose_refine"   # pose_refine | pose_est | teacher
+    # the DeepIM refiner refines the pseudo pose inside the step (the step
+    # takes the refiner as an argument)
     refine_with_deepim: bool = False
+    # RepjRefiner multi-view weak supervision of the student's pose
+    # (models/repj_refiner.py::repj_weak_loss) and its term weights
     repj_refine: bool = False
+    repj_iou2d3d_lw: float = 0.1
+    repj_pm_lw: float = 10.0
+    repj_miou_lw: float = 1.0
+    repj_msssim_lw: float = 1.0
+    repj_render_res: int = 64       # side of the multi-view renders
 
 
 @dataclass(frozen=True)
@@ -267,7 +282,9 @@ class Config:
 
 def lm_flownet() -> Config:
     """DeepIM FlowNet refiner for LINEMOD (configs/deepim/lm_flownet.py):
-    512 zoom, lamb 1.5, 4 train/test iterations, 8 ROIs per batch."""
+    512 zoom, lamb 1.5, 4 train/test iterations, flow, mask, PM and trans
+    losses; Ranger at 1e-4, cosine anneal from 0.72 of 80k iterations, 8
+    ROIs per batch (no accumulation)."""
     return Config(
         exp_name="deepim_lm_flownet512",
         deepim=DeepIMConfig(
@@ -276,7 +293,10 @@ def lm_flownet() -> Config:
             n_iter_train=4, n_iter_test=4, zoom_lamb=1.5,
             pm_lw=10.0, flow_lw=0.1, mask_lw=1.0, trans_lw=1.0,
         ),
-        solver=SolverConfig(ims_per_batch=8),
+        solver=SolverConfig(
+            optimizer="ranger", base_lr=1e-4, anneal_method="cosine",
+            anneal_point=0.72, total_iters=80_000, ims_per_batch=8,
+            reference_bs=8),
     )
 
 
@@ -301,6 +321,20 @@ def stage2_pose_flagship() -> Config:
             lab_impl="pallas", lab_no_l=True, depth_chamfer_lw=1.0,
             perceptual_lw=0.15, pseudo_pm_lw=10.0, pseudo_trans_lw=1.0),
     )
+
+
+def stage2_refined_flagship() -> Config:
+    """stage2_pose_flagship with the in-step refiners that
+    configs/self6dpp/synthetic_smoke.py turns on, at flagship widths: the
+    pseudo pose refined by the DeepIM refiner (lm_flownet(): FlowNetS,
+    512² zoom, its 4 test iterations; the step takes the refiner as an
+    argument) and the RepjRefiner weak loss at the JAX package's weights
+    (iou2d3d 0.1, PM 10, mask IoU 1, MS-SSIM 1) on 64² renders."""
+    f = stage2_pose_flagship()
+    return dataclasses.replace(
+        f, exp_name="stage2_refined_flagship",
+        self_sup=dataclasses.replace(f.self_sup, refine_with_deepim=True,
+                                     repj_refine=True, repj_render_res=64))
 
 
 def stage2_pose_tiny() -> Config:

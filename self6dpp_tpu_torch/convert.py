@@ -1,6 +1,7 @@
 """JAX-package variables (nested dicts of numpy arrays) -> the port's
-state_dicts, for DeepIM, GDRN and LPIPS, and the GDRN's state_dict back to
-JAX-package variables (gdrn_state_dict_to_flax).
+state_dicts, for DeepIM (its three variants), FlowNetS, GDRN and LPIPS,
+and the GDRN's state_dict back to JAX-package variables
+(gdrn_state_dict_to_flax).
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
 (flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
@@ -24,7 +25,6 @@ unfilled.
 
 from __future__ import annotations
 
-import math
 from collections.abc import Mapping
 
 import numpy as np
@@ -41,10 +41,14 @@ _NORM_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                 "running_var": ("batch_stats", "var")}
 
 
-def flownet_key_map(with_decoder: bool, flow4: bool) -> dict[str, tuple[str, str]]:
+def flownet_key_map(with_decoder: bool, out_flow_level: str = "flow4",
+                    use_bn: bool = False) -> dict[str, tuple[str, str]]:
     """{torch module path: (kind, flax module path)} for FlowNetS."""
     m = {f"{n}.0": ("conv", f"_Conv_{i}.Conv_0")
          for i, n in enumerate(_FLOWNET_CONVS)}
+    if use_bn:
+        m.update({f"{n}.1": ("bn", f"_Conv_{i}.BatchNorm_0")
+                  for i, n in enumerate(_FLOWNET_CONVS)})
     if with_decoder:
         # decoder modules in call order
         m["predict_flow6"] = ("conv", "_PredictFlow_0.Conv_0")
@@ -53,15 +57,34 @@ def flownet_key_map(with_decoder: bool, flow4: bool) -> dict[str, tuple[str, str
         m["predict_flow5"] = ("conv", "_PredictFlow_1.Conv_0")
         m["upsampled_flow5_to_4"] = ("deconv", "_UpFlow_1.ConvTranspose_0")
         m["deconv4.0"] = ("deconv", "_Deconv_1.ConvTranspose_0")
-    if flow4:
+    if out_flow_level != "none":
         m["predict_flow4"] = ("conv", "_PredictFlow_2.Conv_0")
+    if out_flow_level == "all":
+        m["upsampled_flow4_to_3"] = ("deconv", "_UpFlow_2.ConvTranspose_0")
+        m["deconv3.0"] = ("deconv", "_Deconv_2.ConvTranspose_0")
+        m["predict_flow3"] = ("conv", "_PredictFlow_3.Conv_0")
+        m["upsampled_flow3_to_2"] = ("deconv", "_UpFlow_3.ConvTranspose_0")
+        m["deconv2.0"] = ("deconv", "_Deconv_3.ConvTranspose_0")
+        m["predict_flow2"] = ("conv", "_PredictFlow_4.Conv_0")
     return m
 
 
 def deepim_key_map(model: DeepIM) -> dict[str, tuple[str, str]]:
+    """The DeepIM's trunk (FlowNetS; or the ResNet of DeepIM_Shared, the
+    observation's `backbone` and the render's `backbone_ren` of
+    DeepIM_Unshared), pose head and mask head."""
     c = model.cfg
-    m = {f"backbone.{k}": (kind, f"backbone.{v}") for k, (kind, v) in
-         flownet_key_map(model.backbone.has_decoder, c.with_flow).items()}
+    if c.name == "DeepIM_FlowNet":
+        nets = {"backbone": flownet_key_map(
+            model.backbone.has_decoder,
+            "flow4" if c.with_flow else "none", c.use_bn)}
+    else:
+        arch = c.backbone if c.backbone != "flownets" else "resnet18"
+        names = ("backbone",) if c.name == "DeepIM_Shared" \
+            else ("backbone", "backbone_ren")
+        nets = {n: resnet_key_map(arch) for n in names}
+    m = {f"{n}.{k}": (kind, f"{n}.{v}") for n, km in nets.items()
+         for k, (kind, v) in km.items()}
     for i in range(c.pose_num_layers):
         kind = "fc_flat" if (i == 0 and c.flat_op == "flatten") else "fc"
         m[f"pose_head.linears.{3 * i}"] = (kind, f"pose_head.Dense_{i}")
@@ -263,21 +286,48 @@ def _convert(model: nn.Module, flat: dict[str, np.ndarray],
     return out
 
 
-def flax_to_state_dict(params: dict, model: DeepIM) -> dict[str, torch.Tensor]:
-    """params: the JAX DeepIM's `params` collection. Returns a state_dict
-    that model.load_state_dict takes with strict=True."""
-    c = model.cfg
-    conv6 = model.backbone.conv6_1[0].out_channels
-    flat_hwc = (math.ceil(c.input_h / 64), math.ceil(c.input_w / 64), conv6)
-    return _convert(model, _flatten({"params": params}), deepim_key_map(model),
-                    flat_hwc)
+def _variables(tree: Mapping) -> dict[str, np.ndarray]:
+    """Flax variables ({'params': ..., 'batch_stats': ...}), or a bare
+    `params` collection, flattened to 'collection.module.leaf' keys."""
+    if "params" not in tree:
+        tree = {"params": tree}
+    return _flatten({k: tree[k] for k in ("params", "batch_stats")
+                     if k in tree})
+
+
+def flax_to_state_dict(variables: Mapping, model: DeepIM
+                       ) -> dict[str, torch.Tensor]:
+    """variables: the JAX DeepIM's {'params': ..., 'batch_stats': ...}
+    (batch_stats for FlowNetS with batch norm and the ResNet variants), or
+    its bare `params` collection. Returns a state_dict that
+    model.load_state_dict takes with strict=True."""
+    return _convert(model, _variables(variables), deepim_key_map(model),
+                    model.feat_hwc)
+
+
+def flownet_flax_to_state_dict(variables: Mapping, net
+                               ) -> dict[str, torch.Tensor]:
+    """variables: a JAX FlowNetS's {'params': ..., 'batch_stats': ...} (or
+    its bare params). Returns the state_dict of the port's FlowNetS `net`."""
+    return _convert(net, _variables(variables), flownet_key_map(
+        net.has_decoder, net.out_flow_level, net.use_bn), None)
+
+
+def param_kinds(model) -> dict[str, str]:
+    """{parameter name: the kind of its JAX counterpart's layout ('conv',
+    'deconv', 'fc', 'fc_flat', 'dense', 'bn', 'gn', 'mtl')} of a DeepIM or
+    a GDRN: what the optimizers that reduce over a tensor's axes (sgd_gc,
+    adamp, sgdp) need to reduce as the JAX package does."""
+    key_map = deepim_key_map(model) if isinstance(model, DeepIM) \
+        else gdrn_key_map(model)
+    return {n: key_map[n.rsplit(".", 1)[0]][0]
+            for n, _ in model.named_parameters()}
 
 
 def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor]:
     """variables: the JAX GDRN's {'params': ..., 'batch_stats': ...}.
     Returns a state_dict that the port's GDRN takes with strict=True."""
-    flat = _flatten({k: variables[k] for k in ("params", "batch_stats")
-                     if k in variables})
+    flat = _variables(variables)
     pn = model.pnp_net
     flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
     return _convert(model, flat, gdrn_key_map(model), flat_hwc)

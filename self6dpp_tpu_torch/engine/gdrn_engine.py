@@ -20,6 +20,7 @@ from torch import Tensor, nn
 
 from .. import resolve_device
 from ..config import Config
+from ..convert import param_kinds
 from ..losses.gdrn_loss import gdrn_loss
 from ..models.gdrn import GDRN
 from .optim import build_optimizer
@@ -113,11 +114,13 @@ def build_gdrn(cfg: Config, device=None, seed: int | None = None) -> GDRN:
     return model.to(resolve_device(device)).eval()
 
 
-def init_state(cfg: Config, model: GDRN) -> TrainState:
-    """Student, EMA teacher and the solver over the student's parameters."""
-    return create_train_state(model, build_optimizer(cfg.solver,
-                                                     model.parameters()),
-                              with_ema=cfg.solver.ema_decay > 0)
+def init_state(cfg: Config, model: nn.Module) -> TrainState:
+    """Student, EMA teacher and the solver over the student's parameters
+    (a GDRN's or a DeepIM's, laid out for the solver as the JAX package
+    lays them out: convert.param_kinds)."""
+    opt = build_optimizer(cfg.solver, model.parameters(),
+                          kinds=list(param_kinds(model).values()))
+    return create_train_state(model, opt, with_ema=cfg.solver.ema_decay > 0)
 
 
 def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark):

@@ -12,7 +12,10 @@ camera-frame normals rendered at output resolution (kernel B1, no
 silhouette); differentiable render of the student pose in the ROI frame
 (fine stage B1 forward, B2 backward); the pose-mode loss suite (LAB
 through B3 or a given lab_linear, LPIPS in float32, MS-SSIM, depth
-chamfer, vf, norm); backward; the solver; EMA update. The geo step trains
+chamfer, vf, norm); with refine_with_deepim the pseudo pose refined by a
+DeepIM refiner (its renders through B1) before the labels, with
+repj_refine the RepjRefiner weak loss on the student's pose (renders at
+64² through B1 and B2); backward; the solver; EMA update. The geo step trains
 the student's dense maps on a pose-variated warp of its input toward the
 teacher's maps warped alike (no render, no kernel); the synsup step is the
 stage-I loss on a synthetic batch with BN frozen. The JAX package jits
@@ -21,11 +24,11 @@ place. The geo step's random draws (warp matrices, colour gain, shift and
 noise) come from draw_geo_aug, a torch.Generator's, and the step takes
 them as an argument.
 
-Not ported here: the in-step DeepIM refiner, RepjRefiner and textured
-meshes (each raises when the configuration or the batch asks for it); the
-JAX pose step's emit_render argument and its extra_grads input; and the
-side programs that feed split_lab (make_lab_grad_fn, make_lab_fwd_fn,
-make_lab_pixel_fn).
+Not ported here: textured meshes (they raise where the batch has them);
+the JAX pose step's emit_render argument and its extra_grads and
+refiner_vars inputs (the port's refiner is a module whose weights the
+caller sets); and the side programs that feed split_lab
+(make_lab_grad_fn, make_lab_fwd_fn, make_lab_pixel_fn).
 """
 
 from __future__ import annotations
@@ -45,14 +48,16 @@ from ..losses.gdrn_loss import gdrn_loss
 from ..losses.mask_losses import get_mask_prob
 from ..losses.self_loss import (check_supported, compute_self_loss_geo,
                                 compute_self_loss_pose)
+from ..models.deepim import DeepIM
 from ..models.gdrn import GDRN
 from ..models.lpips import LPIPS, build_lpips
+from ..models.repj_refiner import repj_weak_loss
 from ..ops.fps import fps_points
 from ..ops.geometry import compute_vf
 from ..ops.rasterizer import compute_vertex_normals, rasterize_batch
 from ..ops.warp import affine_warp, sample_pose_variated_affines
 from ..ops.zoom import zoom_K
-from .deepim_engine import to_device
+from .deepim_engine import make_refine_fn, to_device
 from .gdrn_engine import (autocast, build_gdrn, descend, init_state,
                           model_inputs, no_mark)
 from .train_state import TrainState, gated_ema_decay
@@ -176,17 +181,55 @@ def vf_norm_labels(cfg: Config, batch: dict[str, Tensor],
     return labels
 
 
+def refiner_batch(batch: dict[str, Tensor], obs_mask: Tensor
+                  ) -> dict[str, Tensor]:
+    """The DeepIM refiner's batch in the ROI frame: roi_img observed with
+    the ROI intrinsics (roi_zoom_K), each ROI's class mesh, the pseudo
+    mask as the observed mask."""
+    cls = batch["roi_cls"].long()
+    return {"obs_img": batch["roi_img"], "K": batch["roi_zoom_K"],
+            "verts": batch["mesh_verts"][cls], "faces": batch["mesh_faces"][cls],
+            "colors": batch["mesh_colors"][cls], "roi_cls": batch["roi_cls"],
+            "obs_mask": obs_mask}
+
+
+def repj_terms(cfg: Config, batch: dict[str, Tensor], out: dict[str, Tensor],
+               impl: str = "kernel") -> dict[str, Tensor]:
+    """The RepjRefiner weak loss (models/repj_refiner.py::repj_weak_loss)
+    on the student's pose, with its visible (and, from a second mask
+    channel, full) mask probabilities, the ROIs' class meshes and full-frame
+    intrinsics, at the configured weights and render size."""
+    ss = cfg.self_sup
+    mask_type = cfg.model.loss.mask_loss_type
+    logits = out["mask_logits"]
+    vis_prob = get_mask_prob(logits[..., :1], mask_type)[..., 0]
+    full_prob = (get_mask_prob(logits[..., 1:2], mask_type)[..., 0]
+                 if logits.shape[-1] >= 2 else vis_prob)
+    cls = batch["roi_cls"].long()
+    return repj_weak_loss(
+        out["rot"], out["trans"], vis_prob, full_prob, batch["gt_rot"],
+        batch["gt_trans"], batch["mesh_verts"][cls], batch["mesh_faces"][cls],
+        batch["mesh_colors"][cls], batch["roi_cam"], batch["gt_points"],
+        batch["roi_extent"], sym_rots=batch.get("sym_rots"),
+        sym_valid=batch.get("sym_valid"), render_res=ss.repj_render_res,
+        full_hw=(cfg.renderer.height, cfg.renderer.width),
+        w_iou2d3d=ss.repj_iou2d3d_lw, w_pm=ss.repj_pm_lw,
+        w_miou=ss.repj_miou_lw, w_msssim=ss.repj_msssim_lw,
+        raster_kw={"impl": impl})
+
+
 def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
                    impl: str = "kernel", mark=no_mark,
                    lpips: LPIPS | None = None, split_lab: bool = False,
-                   lab_linear: tuple | None = None):
+                   lab_linear: tuple | None = None, refine=None):
     """The forward half of the pose-mode step: student forward (with
     gradients), teacher forward (without), the teacher's pseudo mask and
-    pose, the differentiable render of the student pose and the loss
-    suite (LPIPS when given; with split_lab, LAB's weight at 0 and its term
-    from lab_linear alone). Returns (losses, render, pseudo labels).
-    mark(name) is called after each phase (see
-    gdrn_engine.event_marker)."""
+    pose (refined by `refine`, a DeepIM refine function, when given), the
+    differentiable render of the student pose and the loss suite (LPIPS
+    when given; with split_lab, LAB's weight at 0 and its term from
+    lab_linear alone; the RepjRefiner terms with repj_refine). Returns
+    (losses, render, pseudo labels). mark(name) is called after each phase
+    (see gdrn_engine.event_marker)."""
     ss = cfg.self_sup
     ss_loss = dataclasses.replace(ss, lab_lw=0.0) if split_lab else ss
     s, o = cfg.model.input_res, cfg.model.output_res
@@ -199,6 +242,13 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     pseudo_vis = pseudo_vis_lr.repeat_interleave(s // o, 1) \
                               .repeat_interleave(s // o, 2)
     p_rot, p_trans = select_pseudo_pose(ss, batch, tout)
+    if refine is not None:
+        # no_grad, not inference_mode: the refined pose feeds the labels of
+        # a step that takes gradients
+        with torch.no_grad():
+            p_rot, p_trans = refine(refiner_batch(batch, pseudo_vis), p_rot,
+                                    p_trans)
+        mark("refine")
     pseudo = {"vis_mask": pseudo_vis, "vis_mask_lr": pseudo_vis_lr,
               "coor": tout["coor"],
               "region": torch.softmax(tout["region_logits"], dim=-1),
@@ -215,12 +265,16 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
                                 lpips_fn=lpips, lab_linear=lab_linear,
                                 impl=impl)
     mark("losses")
+    if ss.repj_refine:
+        ld.update(repj_terms(cfg, batch, out, impl))
+        mark("repj")
     return ld, ren, pseudo
 
 
 def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
                          split_lab: bool = False, impl: str = "kernel",
-                         ema_update_every: int = 1):
+                         ema_update_every: int = 1,
+                         refiner: tuple[DeepIM, Config] | None = None):
     """Returns train_step(state, batch, mark=None, lab_linear=None) ->
     (state, metrics): one pose-mode step, updating the state in place.
     lpips: a frozen LPIPS (build_lpips), or None to leave the perceptual
@@ -233,13 +287,20 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
     metrics holds every loss term and total_loss, as 0-d tensors. mark, if
     given, is called after each phase of the step (see
     gdrn_engine.event_marker). The teacher follows the student every
-    ema_update_every steps."""
+    ema_update_every steps. refiner: (a DeepIM in eval mode, its Config),
+    which refines the pseudo pose by its n_iter_test iterations when
+    self_sup.refine_with_deepim (its renders follow impl)."""
     ss = cfg.self_sup
-    if ss.refine_with_deepim or ss.repj_refine:
-        raise ValueError("refine_with_deepim and repj_refine belong to a "
-                         "later slice of the port")
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl: {impl!r}")
+    refine = None
+    if ss.refine_with_deepim:
+        if refiner is None:
+            raise ValueError("refine_with_deepim needs the refiner: "
+                             "refiner=(DeepIM, its Config)")
+        dmodel, rcfg = refiner
+        refine = make_refine_fn(rcfg, dmodel.eval(), rcfg.deepim.n_iter_test,
+                                raster_kw={"impl": impl})
     check_supported(ss)
     decay_fn = gated_ema_decay(ss.ema_decay, cfg.solver.ema_warmup_iters,
                                ema_update_every)
@@ -251,7 +312,7 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
                    lab_linear=None):
         mark = mark or no_mark
         ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
-                                  split_lab, lab_linear)
+                                  split_lab, lab_linear, refine)
         return descend(state, ld, decay_fn, mark)
 
     return train_step

@@ -206,6 +206,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tde.make_eval_step(tc, model)
     assert next(model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tde.build_deepim(tc, train=True)
+    trained = tde.build_deepim(tc, device="cpu", train=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tde.make_train_step(tc, trained)
 
 
 def test_build_deepim_seeded_and_dtype():
@@ -263,3 +268,5 @@ def test_lm_flownet_matches_jax_config():
     assert rr.pop("impl") == "auto"
     assert dataclasses.asdict(cfg.renderer) == rr
     assert cfg.solver.ims_per_batch == ref.solver.ims_per_batch == 8
+    # the train step's solver (Ranger, cosine anneal, no accumulation)
+    assert dataclasses.asdict(cfg.solver) == dataclasses.asdict(ref.solver)

@@ -246,6 +246,110 @@ def test_fine_raster_at_the_normal_render_shape(cuda_device):
                                    rtol=0, atol=1e-4, msg=name)
 
 
+@pytest.mark.cuda
+def test_fine_raster_at_the_deepim_train_shape(cuda_device):
+    """B1 as the DeepIM train step launches it for the ground-truth render
+    (lm_flownet): 8 ROIs of a 5120-face icosphere, the 512² zoomed frame
+    of a perturbed pose, 16 px tiles, K = 128, hard; candidates
+    depth-sorted; mask and face_id bit for bit, depth and attr within 1e-4
+    of the plain version, one launch."""
+    from self6dpp_tpu_torch.config import lm_flownet
+    from self6dpp_tpu_torch.ops.zoom import (bboxes_from_pose,
+                                             centers_2d_from_pose,
+                                             deepim_boxes, zoom_K)
+    cfg = lm_flownet()
+    d, r = cfg.deepim, cfg.renderer
+    verts, faces = make_icosphere(radius=0.07, subdivisions=4)
+    rng = np.random.default_rng(0)
+    b = 8
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+    K = f32(np.broadcast_to([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]],
+                            (b, 3, 3)))
+    R = f32(Rotation.random(b, random_state=1).as_matrix())
+    t = f32(np.stack([rng.uniform(-0.1, 0.1, b), rng.uniform(-0.1, 0.1, b),
+                      rng.uniform(0.6, 1.4, b)], 1))
+    R0 = f32(Rotation.from_euler("xyz", rng.normal(0, 15, (b, 3)),
+                                 degrees=True).as_matrix()) @ R
+    t0 = t + f32(rng.normal(0, [0.01, 0.01, 0.05], (b, 3)))
+    V = f32(verts).expand(b, -1, -1)
+    boxes, _ = deepim_boxes(bboxes_from_pose(V, K, R0, t0),
+                            centers_2d_from_pose(K, R0, t0),
+                            obs_boxes=bboxes_from_pose(V, K, R, t),
+                            lamb=d.zoom_lamb, out_hw=(d.input_h, d.input_w))
+    Kz = zoom_K(K, boxes, (d.input_h, d.input_w))
+    ftab, cand = TR.raster_inputs(V, torch.as_tensor(faces, device=cuda_device),
+                                  V, Kz, R, t, d.input_h, d.input_w,
+                                  r.tile_px, r.faces_per_tile)
+    assert RC.cand_depth_sorted(ftab, cand)
+    call = (ftab, cand, d.input_h, d.input_w, r.tile_px, 1.0, False, True)
+    before = RC.fine_raster.launches
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    assert RC.fine_raster.launches == before + 1
+    ref = RC.fine_raster_plain(*call)
+    assert torch.equal(got.mask, ref.mask)
+    assert torch.equal(got.face_id, ref.face_id)
+    assert (ref.mask.flatten(1).sum(1) > 0).all()
+    for name in ("depth", "attr", "bary"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
+                                   rtol=0, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_fine_raster_at_the_repj_shape(cuda_device):
+    """B1 and B2 as the RepjRefiner weak loss launches them
+    (stage2_refined_flagship, 8 ROIs): the reprojected student poses at
+    each scale in a 64² frame, 16 px tiles, K = 64, the silhouette at
+    sigma 1.5; candidates depth-sorted; B1's mask and face_id bit for bit
+    and its saved keep as the slot-order product; B2, fed that state, on
+    seeded prob and attr cotangents (no depth one, as the losses send)
+    within 1e-4 of its largest magnitude."""
+    from self6dpp_tpu_torch.config import stage2_refined_flagship
+    from self6dpp_tpu_torch.engine import self_engine as SE
+    from self6dpp_tpu_torch.models import repj_refiner as RR
+    cfg = stage2_refined_flagship()
+    b = SE.stage2_batch(cfg, 8, cuda_device)
+    cls = b["roi_cls"].long()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    prob = torch.rand((8, 64, 64), generator=g).to(cuda_device)
+    turn = torch.as_tensor(Rotation.from_euler(
+        "xyz", np.random.default_rng(1).normal(0, 5, (8, 3)),
+        degrees=True).as_matrix(), dtype=torch.float32, device=cuda_device)
+    rot, trans = turn @ b["gt_rot"], b["gt_trans"] * 1.02
+    args = (b["mesh_verts"][cls], b["mesh_faces"][cls], b["mesh_colors"][cls])
+    _, anchor, (repR, rept, Ks_rep) = RR.repj_inputs(
+        rot, trans, prob, prob, b["gt_rot"], b["gt_trans"], *args,
+        b["roi_cam"], cfg.self_sup.repj_render_res)
+    kw = RR.RASTER_KW
+    n = cfg.self_sup.repj_render_res
+    for s in (1, 2, 4):
+        ftab, cand = TR.raster_inputs(*args, Ks_rep, repR, rept / s, n, n,
+                                      kw["tile_px"], kw["faces_per_tile"])
+        assert RC.cand_depth_sorted(ftab, cand)
+        call = (ftab, cand, n, n, kw["tile_px"], kw["sigma_px"], True, True)
+        out, keep = RC._fine(*call, True)
+        torch.cuda.synchronize()
+        ref = RC.fine_raster_plain(*call)
+        assert torch.equal(out.mask, ref.mask) and ref.mask.sum() > 0, s
+        assert torch.equal(out.face_id, ref.face_id), s
+        want_keep = RC.keep_slot_order_plain(ftab, cand, n, n, kw["tile_px"],
+                                             kw["sigma_px"])
+        assert torch.equal(keep.view(torch.int32), want_keep.view(torch.int32))
+        dprob, _, dattr = cotangents(cuda_device, n, n, 3, seed=s)
+        dprob, dattr = dprob[:1].expand(8, -1, -1), dattr[:1].expand(8, -1, -1, -1)
+        bcall = (ftab, cand, dprob.contiguous(), torch.zeros_like(dprob),
+                 dattr.contiguous(), n, n, kw["tile_px"], kw["sigma_px"], True,
+                 True)
+        before = RC.fine_raster_bwd.launches
+        got = RC.fine_raster_bwd(*bcall, (out.face_id, keep))
+        torch.cuda.synchronize()
+        assert RC.fine_raster_bwd.launches == before + 1
+        want = RC.fine_raster_bwd_plain(*bcall)
+        scale = want.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
 def _lab_inputs(dev, b, s, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     pred = torch.rand((b, s, s, 3), generator=g).to(dev)

@@ -1,7 +1,10 @@
 """The port's solver against the JAX package's, in float32 on the CPU:
 Ranger (nan_to_num, global-norm clip, RAdam, Lookahead) over 8 steps of
-the same gradients, adam, weight decay and MultiSteps accumulation, the
-flat-and-anneal and warmup-multistep schedules and the EMA decay.
+the same gradients, every other optimizer (radam, adam, adamw, adabelief,
+sgd, sgd_gc, madgrad, adamp, sgdp), weight decay and MultiSteps
+accumulation, the flat-and-anneal, warmup-multistep and constant
+schedules, the EMA decay; gradient centralisation and the AdamP projection
+alone, and on a DeepIM's weights laid out as the JAX package lays them.
 """
 
 import dataclasses
@@ -45,6 +48,20 @@ def gradients(steps, seed=0):
 
 SOLVER_CASES = {
     "adam": dict(optimizer="adam"),
+    "radam": dict(optimizer="radam"),
+    "adamw_wd": dict(optimizer="adamw", weight_decay=1e-2),
+    "adabelief": dict(optimizer="adabelief"),
+    "sgd": dict(optimizer="sgd"),
+    "sgd_wd_accum2": dict(optimizer="sgd", weight_decay=1e-2,
+                          ims_per_batch=2, reference_bs=4),
+    "sgd_gc": dict(optimizer="sgd_gc"),
+    "madgrad": dict(optimizer="madgrad"),
+    "madgrad_wd": dict(optimizer="madgrad", weight_decay=1e-2),
+    "adamp": dict(optimizer="adamp"),
+    "sgdp": dict(optimizer="sgdp"),
+    "adam_constant_lr": dict(optimizer="adam", lr_sched="constant"),
+    "sgd_constant_lr_warmup": dict(optimizer="sgd", lr_sched="constant",
+                                   warmup_iters=4),
     "adam_wd_accum2": dict(optimizer="adam", weight_decay=1e-2,
                            ims_per_batch=2, reference_bs=4),
     "ranger_wd_accum3_multistep": dict(
@@ -101,19 +118,136 @@ def solver_matches_jax_over_8_steps(kw):
 
 
 def test_build_optimizer_names_what_is_not_ported():
-    """adam, warmup_multistep, weight decay and accumulation, once of a
-    later slice, now build (and match JAX's, above); the other optimizers
-    and an unknown schedule raise."""
+    """Every optimizer of the JAX package builds (and matches JAX's,
+    above), on every schedule name (a name other than flat_and_anneal and
+    warmup_multistep gives base_lr throughout), with weight decay and
+    accumulation; an unknown optimizer raises."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for kw in (dict(optimizer="adam"), dict(lr_sched="warmup_multistep"),
-               dict(weight_decay=1e-4), dict(ims_per_batch=8, reference_bs=24)):
-        opt = topt.build_optimizer(tc.SolverConfig(**kw), p)
-        assert opt.core == tc.SolverConfig(**kw).optimizer
-        assert opt.accum == (3 if "reference_bs" in kw else 1)
-    for kw in (dict(optimizer="sgd"), dict(optimizer="radam"),
-               dict(optimizer="adamw"), dict(lr_sched="constant")):
-        with pytest.raises(ValueError):
-            topt.build_optimizer(tc.SolverConfig(**kw), p)
+    for name in topt.CORES:
+        for kw in (dict(), dict(lr_sched="warmup_multistep"),
+                   dict(lr_sched="constant", base_lr=3e-3),
+                   dict(weight_decay=1e-4, ims_per_batch=8, reference_bs=24)):
+            cfg = tc.SolverConfig(optimizer=name, **kw)
+            opt = topt.build_optimizer(cfg, p)
+            assert opt.core == name
+            assert opt.accum == (3 if "reference_bs" in kw else 1)
+            if kw.get("lr_sched") == "constant":
+                assert all(opt.lr_fn(k) == 3e-3 for k in (0, 1, 10**6))
+    for name in ("lamb", "sgd_nesterov", ""):
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            topt.build_optimizer(tc.SolverConfig(optimizer=name), p)
+
+
+def _jax_leaf_op(transform, updates, params=None):
+    out, _ = transform.update(updates, transform.init(params or updates),
+                              params)
+    return out
+
+
+def test_centralize_and_projection_match_jax():
+    """sgd_gc's centralisation and the AdamP projection on JAX-layout
+    arrays: each leaf as JAX's transformations treat it, with updates
+    orthogonal to the weight row by row (the channel view projects), to
+    the whole weight only (the layer view projects), and at random (no
+    projection)."""
+    rng = np.random.default_rng(4)
+    p = {k: rng.standard_normal(v).astype(np.float32)
+         for k, v in dict(a=(4, 3), c=(2, 3, 2), d=(3, 3, 4, 5)).items()}
+    u = {k: rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in p.items()}
+
+    def ortho(x, w, rows):
+        """x made orthogonal to w row by row, plus a radial part small
+        enough that |cos| stays below the projection's threshold."""
+        x2, w2 = x.reshape(rows, -1), w.reshape(rows, -1)
+        n = w2 / np.linalg.norm(w2, axis=-1, keepdims=True)
+        x2 = x2 - n * (n * x2).sum(-1, keepdims=True)
+        radial = 0.3 * 0.1 / np.sqrt(x2.shape[1]) * np.linalg.norm(
+            x2, axis=-1, keepdims=True)
+        return (x2 + radial * n).astype(np.float32).reshape(x.shape)
+    cases = {"random": u,
+             "channel": {k: ortho(u[k], p[k], p[k].shape[0]) for k in p},
+             "layer": {k: ortho(u[k], p[k], 1) for k in p}}
+    # a layer-orthogonal update of a weight whose rows it does not leave
+    # orthogonal: only the layer view projects it
+    for k in p:
+        x = cases["layer"][k].reshape(p[k].shape[0], -1)
+        assert np.abs((x * p[k].reshape(x.shape)).sum(-1)).max() > 1e-2
+    gc = jopt._gradient_centralization()
+    proj = jopt._adamp_projection()
+    for name, upd in cases.items():
+        want_gc = _jax_leaf_op(gc, {k: jnp.asarray(v) for k, v in upd.items()})
+        want_p = _jax_leaf_op(proj, {k: jnp.asarray(v) for k, v in upd.items()},
+                              {k: jnp.asarray(v) for k, v in p.items()})
+        for k in p:
+            tu, tp = torch.from_numpy(upd[k]), torch.from_numpy(p[k])
+            np.testing.assert_allclose(topt.centralize(tu).numpy(),
+                                       np.asarray(want_gc[k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"gc {name} {k}")
+            got = topt.project(tp, tu).numpy()
+            np.testing.assert_allclose(got, np.asarray(want_p[k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"proj {name} {k}")
+            if name != "random":
+                assert np.abs(got - upd[k]).max() > 1e-3, (name, k)
+
+
+@pytest.mark.parametrize("name", ["sgd_gc", "adamp", "sgdp"])
+def test_layout_optimizers_on_deepim_match_jax(name):
+    """sgd_gc, adamp and sgdp over 3 steps on a micro DeepIM's weights
+    (convs, transposed convs, dense layers, biases) with the kinds of
+    convert.param_kinds, against JAX's on the same weights in its layout
+    (convert's own layout maps). The first gradient of the first conv is
+    nearly orthogonal to its weight row by row in the JAX layout, so sgdp's
+    first update there is projected in the channel view."""
+    from self6dpp_tpu_torch.convert import (_from_torch_layout,
+                                            _to_torch_layout, param_kinds)
+    from self6dpp_tpu_torch.models.deepim import DeepIM
+    cfg = dict(lr_sched="constant", base_lr=1e-2, optimizer=name)
+    model = DeepIM(tc.DeepIMConfig(input_h=64, input_w=64, pose_feat_dim=8),
+                   widths=(4, 6, 8, 8, 8, 12))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    kinds = param_kinds(model)
+    names = [n for n, _ in model.named_parameters()]
+    rng = np.random.default_rng(5)
+    jax_of = lambda n, a: np.ascontiguousarray(
+        _from_torch_layout(a, kinds[n], model.feat_hwc))
+    torch_of = lambda n, a: np.ascontiguousarray(
+        _to_torch_layout(np.asarray(a), kinds[n], model.feat_hwc))
+    p0 = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+    grads = [{n: (0.5 * rng.standard_normal(p0[n].shape)).astype(np.float32)
+              for n in names} for _ in range(3)]
+    first = "backbone.conv1.0.weight"
+    w = jax_of(first, p0[first])
+    g2 = jax_of(first, grads[0][first]).reshape(w.shape[0], -1)
+    nrm = w.reshape(w.shape[0], -1)
+    nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    g2 = g2 - nrm * (nrm * g2).sum(-1, keepdims=True)
+    # a radial part in the first row alone, which the channel view's
+    # projection removes from that row (|cos| stays under its cutoff); a
+    # projection in another layout would spread it over the weight
+    g2[0] += 0.9 * 0.1 / np.sqrt(g2.shape[1]) * np.linalg.norm(g2[0]) * nrm[0]
+    grads[0][first] = torch_of(first, g2.astype(np.float32).reshape(w.shape))
+
+    tx, _ = jopt.build_optimizer(jc.SolverConfig(**cfg))
+    jp = {n: jnp.asarray(jax_of(n, p0[n])) for n in names}
+    jstate = tx.init(jp)
+    opt = topt.build_optimizer(tc.SolverConfig(**cfg), model.parameters(),
+                               kinds=list(kinds.values()))
+    update = jax.jit(tx.update)
+    for step, g in enumerate(grads):
+        upd, jstate = update({n: jnp.asarray(jax_of(n, g[n]))
+                                 for n in names}, jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        for n, p in model.named_parameters():
+            p.grad = torch.from_numpy(g[n])
+        opt.step()
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), torch_of(n, jp[n]),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"step {step} {n}")
+    moved = max(np.abs(p.detach().numpy() - p0[n]).max()
+                for n, p in model.named_parameters())
+    assert moved > 100 * (ATOL + RTOL), moved
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(warmup_iters=10, steps=(0.3,)),
