@@ -19,7 +19,11 @@
     zoom, 4 iterations, 8 ROIs, Ranger; flow and mask labels from a second
     render at the GT pose) and the stage-II pose step with the in-step
     refiners at stage2_refined_flagship (the pseudo pose refined by the
-    lm_flownet DeepIM, the RepjRefiner weak loss on 64² renders).
+    lm_flownet DeepIM, the RepjRefiner weak loss on 64² renders);
+  * evaluation on BOP data (test_gdrn.sh, test_deepim.sh): the synthetic
+    BOP set written by the port, the GDRN eval CLI at lm_base width and
+    the DeepIM one at lm_flownet on it (the eval loader's label renders,
+    the evaluator's VSD renders), and the evaluator at LM's 480x640 frame.
 
     python3 chip_smoke.py
 
@@ -83,7 +87,26 @@ exits non-zero):
      with 11 B1 (1 student, 4 refiner, 6 repj), 4 B2 (1 student, 3 repj)
      and 1 B3 launch each;
  15. run two float32 DeepIM train steps (64² zoom, 2 iterations, 2 ROIs)
-     on the card and on the CPU: losses and parameters agree.
+     on the card and on the CPU: losses and parameters agree;
+ 16. write the synthetic BOP set (48 images, 2 objects, 160x120; PNG
+     rows filtered as libpng chooses) with B1 and with the plain fine
+     stage: JSON, PLY and masks equal, RGB and depth within 1 unit, one B1
+     launch per object and image; time the PNG decode of an LM-sized
+     frame (RGB with Paeth rows and adaptive rows, a mask, a 16-bit depth);
+ 17. run the GDRN eval CLI (test_gdrn) at lm_base width on that set
+     through the kernels and through the plain fine stage, cuDNN
+     deterministic: recall and BOP19 tables and CSV rows equal; hold B1 at
+     the label cache's shape (24 x 128², tile 8, K 64) on the run's own
+     inputs (mask and face_id bit for bit) and time it; then time the CLI
+     through the kernels as a user runs it (cuDNN's default algorithms),
+     with and without loader threads: images/s and, per batch, the host
+     load, the label render and the eval step, and the evaluate time;
+ 18. run the DeepIM eval CLI (test_deepim) at lm_flownet on the same set
+     (tables and poses kernel vs plain equal, then timed as in 17: ms per
+     batch), then the
+     evaluator with bop19 at LM's frame (13 objects, 5120-face meshes, 8
+     noisy predictions each, a synthetic observed depth; tables equal)
+     and hold B1 at its VSD renders (8 x 480x640, tile 16, K 128).
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -1656,27 +1679,33 @@ S4_LAUNCHES = {"fine_raster_fwd": 11, "fine_raster_bwd": 4,
 def launches_by_height():
     """While active, tallies B1 and B2 launches by the image height of the
     call ({kernel: {height: n}}): 512 (DeepIM), 256 (the student render)
-    and 64 (repj) tell the shapes of one step apart."""
+    and 64 (repj) tell the shapes of one step apart. Calls are serialised
+    by a lock, so that renders from the eval loader's thread and the main
+    thread are each tallied at their own height."""
+    import threading
     from self6dpp_tpu_torch.ops import raster_cuda as RC
     tally = {"fine_raster_fwd": {}, "fine_raster_bwd": {}}
     fine, bwd = RC._fine, RC.fine_raster_bwd
+    lock = threading.Lock()
 
     def add(kernel, height, n):
         t = tally[kernel]
         t[height] = t.get(height, 0) + n
 
     def fine_counted(ftab, cand, height, *args):
-        before = RC.fine_raster.launches
-        out = fine(ftab, cand, height, *args)
-        add("fine_raster_fwd", height, RC.fine_raster.launches - before)
+        with lock:
+            before = RC.fine_raster.launches
+            out = fine(ftab, cand, height, *args)
+            add("fine_raster_fwd", height, RC.fine_raster.launches - before)
         return out
 
     # the wrapper takes the counter's place (the kernel's wrapper adds to
     # the module attribute it is named by) and hands it back after
     def bwd_counted(*args):
-        before = bwd_counted.launches
-        out = bwd(*args)
-        add("fine_raster_bwd", args[5], bwd_counted.launches - before)
+        with lock:
+            before = bwd_counted.launches
+            out = bwd(*args)
+            add("fine_raster_bwd", args[5], bwd_counted.launches - before)
         return out
     bwd_counted.launches = bwd.launches
     RC._fine, RC.fine_raster_bwd = fine_counted, bwd_counted
@@ -2078,6 +2107,455 @@ def check_deepim_card_vs_cpu(cfg, device, request):
     return out
 
 
+# ---------------------------------------------------------------- eval slice
+SYN_IMAGES = 48                   # phase 16: > 2 GDRN batches of 24 ROIs
+SYN_DIR = os.path.join(HERE, "_smoke_data")   # git-ignored, made anew
+LABEL_RES = 128                   # the label cache: 2 x lm_base's 64² output
+SYN_HW = (120, 160)               # the 'synthetic' meta's frame
+VSD_PER_OBJECT = 8                # phase 18b: noisy predictions per object
+# the eval CLIs' runs (phases 17, 18a): (name, impl, extra opts, cuDNN
+# deterministic). Through the kernels and through the plain fine stage with
+# deterministic cuDNN, for the equal tables; then timed as a user runs the
+# CLI (cuDNN's default algorithms), with the loader's threads and without
+# them (the step alone on the host: the control for their contention)
+RUNS = (("kernel", "kernel", (), True), ("plain", "plain", (), True),
+        ("timed", "kernel", (), False),
+        ("serial", "kernel", ("data.num_workers=0",), False))
+PNG_FRAME_HW = (480, 640)         # phase 16: decode times at LM's frame
+PNG_READS = 10
+
+
+@contextlib.contextmanager
+def first_inputs_at(heights):
+    """While active, records the first face table and candidate list that
+    rasterizer.raster_inputs makes at each image height in `heights`, with
+    the call's shape: {height: (ftab, cand, height, width, tile_px)}."""
+    from self6dpp_tpu_torch.ops import rasterizer as R
+    inner = R.raster_inputs
+    seen = {}
+
+    def recorded(verts, faces, attrs, K, R_, t, height, width,
+                 tile_px=16, faces_per_tile=128, cull_backfaces=True):
+        ftab, cand = inner(verts, faces, attrs, K, R_, t, height, width,
+                           tile_px, faces_per_tile, cull_backfaces)
+        if height in heights and height not in seen:
+            seen[height] = (ftab.clone(), cand.clone(), height, width, tile_px)
+        return ftab, cand
+    R.raster_inputs = recorded
+    try:
+        yield seen
+    finally:
+        R.raster_inputs = inner
+
+
+def b1_at(inputs, key):
+    """B1 on recorded main-path inputs (first_inputs_at; hard, perspective
+    z) against its plain version: mask and face_id bit for bit, the rest
+    within TOL_KERNEL; candidates depth-sorted; timed (graph, eager,
+    plain) with its bound (bytes or f32 operations, as check_kernel)."""
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    ftab, cand, h, w, tile = inputs
+    require(RC.cand_depth_sorted(ftab, cand), key, "cand order")
+    call = (ftab, cand, h, w, tile, 1.0, False, True)
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    ref = RC.fine_raster_plain(*call)
+    v = compare_raster(got, ref, key)
+    require(torch.equal(got.mask, ref.mask)
+            and torch.equal(got.face_id, ref.face_id),
+            key, "mask/face_id not bit for bit")
+    v["max_abs_err_all"] = max(v["max_abs_err"].values())
+    v["ms"] = cuda_ms(lambda: RC.fine_raster(*call))
+    v["graph_ms"] = graph_ms(lambda: RC.fine_raster(*call))
+    v["plain_ms"] = cuda_ms(lambda: RC.fine_raster_plain(*call),
+                            **PLAIN_TIMING)
+    B, F, C = ftab.shape
+    D = (C - RC._GEO) // 3
+    n = raster_counts(ftab, cand, ref.mask, tile, h, w)
+    v.update(bound(n["face_rows_read"] * C * 4 + cand.numel() * 4
+                   + B * h * w * (4 + D + 3) * 4, b1_ops(n, with_prob=False)))
+    v["shape"] = {"batch": B, "height": h, "width": w, "tile_px": tile,
+                  "faces_per_tile": int(cand.shape[1]), "faces": F,
+                  "attr_dim": D}
+    v["counts"] = {k: x for k, x in n.items() if not k.startswith("_")}
+    return v
+
+
+def _read_tree(root):
+    """{relative path: decoded PNG array or parsed JSON} under root."""
+    from self6dpp_tpu_torch.data.image_io import imread
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, root)
+            if name.endswith(".png"):
+                out[rel] = imread(path)
+            elif name.endswith(".json"):
+                with open(path) as f:
+                    out[rel] = json.load(f)
+            elif name.endswith(".ply"):
+                with open(path, "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def png_row_filters(path):
+    """{filter type: rows} of a non-interlaced 8-bit gray/RGB or 16-bit
+    gray PNG."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", data[pos + 8:pos + 18])
+        elif kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    stride = w * (3 if ctype == 2 else 1) * depth // 8
+    types = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, stride + 1)[:, 0]
+    return {int(k): int(v) for k, v in zip(*np.unique(types,
+                                                      return_counts=True))}
+
+
+def time_png_decode():
+    """Phase 16: read_png of one LM-sized frame (PNG_FRAME_HW) on the host:
+    a smooth RGB image with camera noise written with Paeth on every row
+    and with the adaptive choice, a binary mask and a 16-bit depth map
+    (adaptive), each read back bit for bit; median ms of PNG_READS reads,
+    the first (which builds the unfilter routine) left out. Returns the
+    record, with the decode of one ROI of the loader (image, two masks,
+    depth)."""
+    from self6dpp_tpu_torch.data.image_io import read_png, write_png
+    rng = np.random.default_rng(SEED + 16)
+    h, w = PNG_FRAME_HW
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    rgb = np.stack([xx * 0.3 + yy * 0.1, (xx - yy) * 0.2 + 128, yy * 0.4], -1)
+    rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255).astype(np.uint8)
+    mask = (((xx - w / 2) ** 2 + (yy - h / 2) ** 2) < (h / 3) ** 2
+            ).astype(np.uint8) * 255
+    depth = (600 + xx + 2 * yy + rng.integers(0, 3, (h, w))).astype(np.uint16)
+    d = os.path.join(SYN_DIR, "png")
+    os.makedirs(d, exist_ok=True)
+    out = {"frame_hw": [h, w], "reads": PNG_READS}
+    for name, img, ftype in (("rgb_paeth", rgb, 4), ("rgb", rgb, None),
+                             ("mask", mask, None), ("depth16", depth, None)):
+        path = os.path.join(d, f"{name}.png")
+        write_png(path, img, filter_type=ftype)
+        require(np.array_equal(read_png(path), img), "PNG round trip", name)
+        ts = []
+        for _ in range(PNG_READS + 1):
+            t0 = time.perf_counter()
+            read_png(path)
+            ts.append(time.perf_counter() - t0)
+        out[name] = {"ms": float(np.median(ts[1:]) * 1e3),
+                     "bytes": os.path.getsize(path),
+                     "row_filters": png_row_filters(path)}
+    out["roi_decode_ms"] = (out["rgb"]["ms"] + 2 * out["mask"]["ms"]
+                            + out["depth16"]["ms"])
+    return out
+
+
+def make_synthetic_sets(device):
+    """Phase 16: the port's generate_full writes the synthetic BOP set
+    (SYN_IMAGES images, 2 objects, 160x120) with B1 and again with the
+    plain fine stage: JSON, PLY and mask PNGs equal, RGB and depth PNGs
+    within 1 unit; one B1 launch per object and image (tile 8, K 64).
+    Returns (the kernel set's root, the phase's record)."""
+    import shutil
+    from self6dpp_tpu_torch.data.synthetic_bop import generate_full
+    shutil.rmtree(SYN_DIR, ignore_errors=True)
+    roots, secs = {}, {}
+    for impl in ("kernel", "plain"):
+        roots[impl] = os.path.join(SYN_DIR, impl)
+        zero_kernel_launches()
+        t0 = time.perf_counter()
+        with launches_by_height() as tally:
+            generate_full(roots[impl], n_images=SYN_IMAGES, seed=SEED,
+                          device=device, impl=impl)
+        secs[impl] = time.perf_counter() - t0
+        if impl == "kernel":
+            launches = kernel_launches()
+            by_h = tally["fine_raster_fwd"]
+    require(launches["fine_raster_fwd"] == 2 * SYN_IMAGES
+            and by_h == {SYN_HW[0]: 2 * SYN_IMAGES},
+            "synthetic set: one B1 per object and image", launches, by_h)
+    a, b = _read_tree(roots["kernel"]), _read_tree(roots["plain"])
+    require(a.keys() == b.keys() and len(a) > 6 * SYN_IMAGES,
+            "synthetic set: files", len(a), len(b))
+    worst = {"rgb": 0, "depth": 0}
+    differ = {"rgb": 0, "depth": 0}
+    for rel, x in a.items():
+        y = b[rel]
+        kind = rel.split(os.sep)[-2] if rel.endswith(".png") else "other"
+        if kind in worst:
+            require(x.shape == y.shape and x.dtype == y.dtype, rel)
+            d = int(np.abs(x.astype(np.int64) - y).max())
+            worst[kind] = max(worst[kind], d)
+            differ[kind] += int((x != y).sum())
+            require(d <= 1, "synthetic set: more than 1 unit", rel, d)
+        else:
+            same = np.array_equal(x, y) if isinstance(x, np.ndarray) \
+                else x == y
+            require(same, "synthetic set: not equal", rel)
+    filters = {}
+    for kind in ("rgb", "depth", "mask_visib"):
+        path = os.path.join(roots["kernel"], "lm", "test", "000000", kind,
+                            "000000.png" if kind != "mask_visib"
+                            else "000000_000000.png")
+        filters[kind] = png_row_filters(path)
+    return roots["kernel"], {
+        "images": SYN_IMAGES, "objects": 2, "frame_hw": list(SYN_HW),
+        "row_filters_of_first_image": filters,
+        "files": len(a), "b1_launches": launches["fine_raster_fwd"],
+        "seconds": secs, "max_unit_diff": worst, "values_differing": differ}
+
+
+def eval_cli(main, argv, device, impl, deterministic, heights=()):
+    """One in-process run of an eval CLI (the port's tools.*.main), cuDNN
+    deterministic or as the CLI leaves it, the launch counts set to 0 just
+    before and read just after, B1 launches tallied by height, and the
+    first render inputs at `heights` recorded. Returns (result, launches,
+    by height, inputs, wall seconds)."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        with launches_by_height() as tally, first_inputs_at(heights) as seen:
+            res = main(argv, device=device, impl=impl)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return (res, kernel_launches(), dict(tally["fine_raster_fwd"]), seen,
+            time.perf_counter() - t0)
+
+
+def rows_equal(a, b):
+    """The CSV rows of two runs without their clock field ('time')."""
+    key = lambda r: {k: (np.asarray(v).tolist() if isinstance(
+        v, np.ndarray) else v) for k, v in r.items()
+        if k not in ("time", "depth_obs")}
+    return [key(r) for r in a] == [key(r) for r in b]
+
+
+def per_batch(timings, valid_rois):
+    """The CLI's per-batch timings: medians of host load, label render,
+    wait and step seconds in ms; ROIs (images) per second of the step
+    alone and of the inference loop (waits and steps, the warm-up call
+    left out)."""
+    med = lambda k: float(np.median([t[k] for t in timings]) * 1e3)
+    step_s = sum(t["step_s"] for t in timings)
+    loop_s = step_s + sum(t["wait_s"] for t in timings)
+    return {"batches": len(timings), "host_load_ms": med("host_s"),
+            "loop_images_per_s": valid_rois / loop_s,
+            "label_render_ms": med("label_render_s"),
+            "wait_ms": med("wait_s"), "eval_step_ms": med("step_s"),
+            "eval_step_ms_range": [min(t["step_s"] for t in timings) * 1e3,
+                                   max(t["step_s"] for t in timings) * 1e3],
+            "images_per_s": valid_rois / step_s}
+
+
+def pose_gap(a, b):
+    """The largest difference of R or t between two runs' result rows."""
+    return max(float(np.abs(np.asarray(x[k]) - np.asarray(y[k])).max())
+               for x, y in zip(a, b) for k in ("R", "t"))
+
+
+def check_timed_runs(runs, name, n):
+    """The timed runs (cuDNN's default algorithms) score every ROI with
+    finite tables; their largest pose difference from the deterministic
+    kernel run, for the record."""
+    gaps = {}
+    for run in ("timed", "serial"):
+        res = runs[run][0]
+        t = res["tables"]
+        require(len(res["results"]) == n and all(
+            np.isfinite(list(v.values())).all() for v in t.values()),
+            name, run, "run: every ROI scored, finite tables")
+        gaps[run] = pose_gap(runs["kernel"][0]["results"], res["results"])
+    return gaps
+
+
+def run_test_gdrn(root, device):
+    """Phase 17: test_gdrn at lm_base width (resnest50d, 256² -> 64², the
+    TopDown head, ConvPnPNet, 24 ROIs a batch, bf16) on the synthetic set,
+    2 classes, seeded weights (RUNS): through the kernels and through the
+    plain fine stage, deterministic, the recall tables (bop19 columns too)
+    and the CSV rows equal; timed through the kernels as the CLI runs, with
+    and without loader threads. B1 runs at the label cache (24 x 128², tile
+    8, K 64) and at the VSD renders of the synthetic frame (120x160, tile
+    16, K 128)."""
+    from self6dpp_tpu_torch.tools import train_gdrn
+    out = os.path.join(SYN_DIR, "out")
+    runs = {}
+    for run, impl, extra, det in RUNS:
+        argv = ["--config", "configs/gdrn/lm_base.py", "--eval-only",
+                "--opts", f"data.dataset_root={root}",
+                "data.test_datasets=synthetic", "model.num_classes=2",
+                f"output_dir={os.path.join(out, run)}", *extra]
+        runs[run] = eval_cli(train_gdrn.main, argv, device, impl, det,
+                             heights=(LABEL_RES,))
+    res, launches, by_h, seen, _ = runs["kernel"]
+    plain, timed = runs["plain"], runs["timed"]
+    require(res["tables"] == plain[0]["tables"],
+            "test_gdrn tables: kernel vs plain")
+    require(rows_equal(res["results"], plain[0]["results"]),
+            "test_gdrn CSV rows: kernel vs plain")
+    with open(res["csv"]) as f:
+        n_rows = len(f.readlines()) - 1
+    t = res["tables"]
+    n = int(sum(v["n"] for k, v in t.items() if k != "avg"))
+    require(n == 2 * SYN_IMAGES and n_rows == n and "bop19_ar" in t["avg"],
+            "test_gdrn: every ROI scored", n, n_rows)
+    require(all(np.isfinite(list(v.values())).all() for v in t.values()),
+            "test_gdrn: non-finite table", t)
+    gaps = check_timed_runs(runs, "test_gdrn", n)
+    n_batches = -(-n // 24)
+    require(by_h.get(LABEL_RES) == n_batches and launches[
+        "fine_raster_bwd"] == 0, "test_gdrn B1 launches", by_h, launches)
+    return seen[LABEL_RES], {
+        "config": "gdrn_lm_base", "rois": n, "batch": 24,
+        "compute_dtype": "bfloat16", "timed_cudnn_deterministic": False,
+        "wall_s": timed[4], "wall_s_plain": plain[4],
+        "evaluate_s": timed[0]["evaluate_s"],
+        "evaluate_s_plain": plain[0]["evaluate_s"],
+        "b1_launches_by_height": by_h, "avg": t["avg"],
+        "avg_timed": timed[0]["tables"]["avg"],
+        "timed_vs_deterministic_pose_max_abs": gaps,
+        **per_batch(timed[0]["timings"], n),
+        "serial": {"wall_s": runs["serial"][4],
+                   **per_batch(runs["serial"][0]["timings"], n)}}
+
+
+def run_test_deepim(root, device):
+    """Phase 18a: test_deepim at lm_flownet (FlowNetS, 512² zoom, 4 test
+    iterations, 8 ROIs a batch, bf16), 2 classes, on the synthetic set
+    (RUNS): through the kernels and the plain fine stage, deterministic,
+    tables and result rows equal; timed through the kernels as the CLI
+    runs, with and without loader threads. B1 4 times a batch at 512² (and
+    once at the label cache)."""
+    from self6dpp_tpu_torch.tools import train_deepim
+    runs = {}
+    for run, impl, extra, det in RUNS:
+        argv = ["--config", "configs/deepim/lm_flownet.py", "--eval-only",
+                "--opts", f"data.dataset_root={root}",
+                "data.test_datasets=synthetic", "model.num_classes=2",
+                "deepim.num_classes=2",
+                f"output_dir={os.path.join(SYN_DIR, 'out', run)}", *extra]
+        runs[run] = eval_cli(train_deepim.main, argv, device, impl, det)
+    res, launches, by_h, _, _ = runs["kernel"]
+    plain, timed = runs["plain"], runs["timed"]
+    gap = pose_gap(res["results"], plain[0]["results"])
+    same_tables = res["tables"] == plain[0]["tables"]
+    same_rows = rows_equal(res["results"], plain[0]["results"])
+    require(same_tables and same_rows, "test_deepim: kernel vs plain",
+            same_tables, same_rows, gap)
+    n = len(res["results"])
+    gaps = check_timed_runs(runs, "test_deepim", n)
+    n_batches = -(-n // 8)
+    require(n == 2 * SYN_IMAGES and by_h == {
+        512: 4 * (n_batches + 1), LABEL_RES: n_batches},
+        "test_deepim B1 launches", n, by_h)
+    return {"config": "deepim_lm_flownet512", "rois": n, "batch": 8,
+            "iterations": 4, "compute_dtype": "bfloat16",
+            "timed_cudnn_deterministic": False, "wall_s": timed[4],
+            "wall_s_plain": plain[4], "evaluate_s": timed[0]["evaluate_s"],
+            "b1_launches_by_height": by_h,
+            "kernel_vs_plain_pose_max_abs": gap,
+            "timed_vs_deterministic_pose_max_abs": gaps,
+            "avg": res["tables"]["avg"],
+            "avg_timed": timed[0]["tables"]["avg"],
+            "ms_per_batch": float(np.median([t["step_s"] for t in
+                                             timed[0]["timings"]]) * 1e3),
+            **per_batch(timed[0]["timings"], n),
+            "serial": {"wall_s": runs["serial"][4],
+                       **per_batch(runs["serial"][0]["timings"], n)}}
+
+
+def lm_predictions(meshes, device):
+    """Phase 18b's inputs: VSD_PER_OBJECT noisy predictions for each of
+    LM's 13 objects as evaluator batches (GT poses inside the 480x640
+    frame, estimates 5 deg / 1 cm off, every fourth exact) with a
+    synthetic observed depth: a plane at 0.9 m over the left half of the
+    frame (an occluder for the farther poses), no depth on the right."""
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(SEED + 18)
+    obs = np.zeros(FRAME_HW, np.float32)
+    obs[:, : FRAME_HW[1] // 2] = 0.9
+    batches, outs = [], []
+    b = VSD_PER_OBJECT
+    for c in range(N_CLASSES):
+        z = rng.uniform(0.6, 1.2, b)
+        uv = rng.uniform([120, 100], [520, 380], (b, 2))
+        t = np.stack([(uv[:, 0] - LM_K[0, 2]) / LM_K[0, 0] * z,
+                      (uv[:, 1] - LM_K[1, 2]) / LM_K[1, 1] * z, z], 1)
+        R = Rotation.random(b, random_state=SEED + c).as_matrix()
+        dR = Rotation.from_euler("xyz", rng.normal(0, 5, (b, 3)),
+                                 degrees=True).as_matrix()
+        est_R, est_t = dR @ R, t + rng.normal(0, 0.01, (b, 3))
+        est_R[::4], est_t[::4] = R[::4], t[::4]
+        f32 = lambda x: np.asarray(x, np.float32)
+        batches.append({"roi_cls": np.full(b, c, np.int32),
+                        "gt_rot": f32(R), "gt_trans": f32(t),
+                        "roi_cam": f32(np.broadcast_to(LM_K, (b, 3, 3))),
+                        "obj_id": np.full(b, c + 1, np.int32),
+                        "full_depth": np.broadcast_to(obs, (b,) + FRAME_HW)})
+        outs.append({"rot": torch.as_tensor(f32(est_R), device=device),
+                     "trans": torch.as_tensor(f32(est_t), device=device)})
+    return batches, outs
+
+
+def run_lm_evaluator(meshes, device):
+    """Phase 18b: PoseEvaluator(bop19=True) with LM's meta (13 objects,
+    480x640) and ObjectModels.from_meshes of the 5120-face icospheres,
+    through the kernels and through the plain fine stage: tables equal;
+    B1 twice per object (estimate, ground truth) at 8 x 480x640, tile 16,
+    K 128, hard. Returns (B1's first inputs there, the record)."""
+    from self6dpp_tpu_torch.data.loader import ObjectModels
+    from self6dpp_tpu_torch.data.ref import get_meta
+    from self6dpp_tpu_torch.engine.evaluator import PoseEvaluator
+    meta = get_meta("lm")
+    verts, faces, colors = meshes
+    models = ObjectModels.from_meshes(
+        meta.objects, [{"verts": verts[c], "faces": faces, "colors": colors[c]}
+                       for c in range(N_CLASSES)],
+        sym_names=meta.sym_objects)
+    batches, outs = lm_predictions(meshes, device)
+    res = {}
+    for impl in ("kernel", "plain"):
+        ev = PoseEvaluator(models, meta, device=device, impl=impl)
+        for b, o in zip(batches, outs):
+            ev.process(b, o)
+        zero_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with launches_by_height() as tally, \
+                first_inputs_at((FRAME_HW[0],)) as seen:
+            tables = ev.evaluate(bop19=True)
+        torch.cuda.synchronize()
+        res[impl] = (tables, time.perf_counter() - t0, kernel_launches(),
+                     dict(tally["fine_raster_fwd"]), seen)
+    tables, secs, launches, by_h, seen = res["kernel"]
+    require(tables == res["plain"][0], "LM evaluator: kernel vs plain")
+    require(by_h == {FRAME_HW[0]: 2 * N_CLASSES}
+            and launches["fine_raster_fwd"] == 2 * N_CLASSES,
+            "LM evaluator B1 launches", by_h)
+    avg = tables["avg"]
+    require(0 < avg["bop19_ar"] < 100 and avg["n"] == VSD_PER_OBJECT,
+            "LM evaluator: bop19 scores", avg)
+    return seen[FRAME_HW[0]], {
+        "meta": "lm", "objects": N_CLASSES, "frame_hw": list(FRAME_HW),
+        "predictions": N_CLASSES * VSD_PER_OBJECT,
+        "faces": int(faces.shape[0]), "evaluate_s": secs,
+        "evaluate_s_plain": res["plain"][1], "b1_launches_by_height": by_h,
+        "avg": avg}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2262,6 +2740,31 @@ def main() -> int:
     di_cpu = check_deepim_card_vs_cpu(cfg, device, requests[1])
     print(f"DeepIM train fp32 card vs CPU: {json.dumps(di_cpu)}", flush=True)
     clock["deepim_card_vs_cpu_phase15_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    syn_root, syn = make_synthetic_sets(device)
+    print(f"synthetic BOP set: {json.dumps(syn)}", flush=True)
+    png = time_png_decode()
+    print(f"PNG decode at LM's frame: {json.dumps(png)}", flush=True)
+    clock["synthetic_set_phase16_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    label_inputs, gdrn_test = run_test_gdrn(syn_root, device)
+    b1_label = b1_at(label_inputs, "label cache B1")
+    del label_inputs
+    print(f"test_gdrn: {json.dumps(gdrn_test)}", flush=True)
+    print(f"label cache B1 vs plain: {json.dumps(b1_label)}", flush=True)
+    clock["test_gdrn_phase17_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deepim_test = run_test_deepim(syn_root, device)
+    print(f"test_deepim: {json.dumps(deepim_test)}", flush=True)
+    clock["test_deepim_phase18a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vsd_inputs, lm_eval = run_lm_evaluator(meshes, device)
+    b1_vsd = b1_at(vsd_inputs, "VSD B1")
+    del vsd_inputs
+    print(f"LM evaluator: {json.dumps(lm_eval)}", flush=True)
+    print(f"VSD B1 vs plain: {json.dumps(b1_vsd)}", flush=True)
+    clock["lm_evaluator_phase18b_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -2275,7 +2778,10 @@ def main() -> int:
               "deepim_gt_render": di_gt, "deepim_train_steps": di_steps,
               "repj_kernels": repj, "stage2_refined_fp32": s4_fp32,
               "stage2_refined_steps": s4_steps,
-              "deepim_train_card_vs_cpu": di_cpu, "clock": clock,
+              "deepim_train_card_vs_cpu": di_cpu,
+              "synthetic_set": syn, "png_decode": png, "test_gdrn": gdrn_test,
+              "label_cache_b1": b1_label, "test_deepim": deepim_test,
+              "lm_evaluator": lm_eval, "vsd_b1": b1_vsd, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -2294,6 +2800,10 @@ def main() -> int:
                              by_h["fine_raster_bwd"][n4]),
                     "source": "self6dpp_tpu_torch/csrc/fine_raster_bwd.cu",
                     "replaces": "self6dpp_tpu/ops/raster_pallas.py:459"})
+    kernels.append(b1_row("fine_raster_fwd[label_cache]", b1_label,
+                          gdrn_test["b1_launches_by_height"][LABEL_RES]))
+    kernels.append(b1_row("fine_raster_fwd[vsd]", b1_vsd,
+                          lm_eval["b1_launches_by_height"][FRAME_HW[0]]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
@@ -2324,6 +2834,26 @@ def main() -> int:
                                        "phase_ms_median", "launches",
                                        "launches_by_height",
                                        "peak_mem_gib")},
+                               "gdrn_test": {
+                                   k: gdrn_test[k] for k in (
+                                       "config", "rois", "batch",
+                                       "compute_dtype", "images_per_s",
+                                       "loop_images_per_s",
+                                       "host_load_ms", "label_render_ms",
+                                       "eval_step_ms", "evaluate_s",
+                                       "wall_s", "b1_launches_by_height")},
+                               "deepim_test": {
+                                   k: deepim_test[k] for k in (
+                                       "config", "rois", "batch",
+                                       "iterations", "compute_dtype",
+                                       "ms_per_batch", "host_load_ms",
+                                       "label_render_ms", "evaluate_s",
+                                       "wall_s", "b1_launches_by_height")},
+                               "lm_evaluate_s": lm_eval["evaluate_s"],
+                               "png_decode_ms_lm_frame": {
+                                   k: png[k]["ms"] for k in (
+                                       "rgb_paeth", "rgb", "mask",
+                                       "depth16")},
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

@@ -217,9 +217,69 @@ class SolverConfig:
 
 
 @dataclass(frozen=True)
+class DZIConfig:
+    """Dynamic zoom-in of the detection box (data/aug.py::aug_bbox_dzi)."""
+    type: str = "uniform"           # uniform | truncnorm | none | roi10d
+    pad_scale: float = 1.5
+    scale_ratio: float = 0.25
+    shift_ratio: float = 0.25
+
+
+@dataclass(frozen=True)
 class DataConfig:
+    """The data pipeline (data/loader.py). The fields of the training mode
+    (augmentation, background replacement, samplers) are kept under their
+    names so that the repo's configs load whole; the port's loader runs
+    the eval mode only and refuses train=True."""
+    dataset_root: str = "datasets"
+    train_datasets: tuple[str, ...] = ("lm_pbr_13_train",)
+    train2_datasets: tuple[str, ...] = ()
+    train2_ratio: float = 0.0
+    test_datasets: tuple[str, ...] = ("lm_13_test",)
+    det_files_train: tuple[str, ...] = ()
+    det_files_test: tuple[str, ...] = ()
+    det_topk_per_obj: int = 1
+    det_thresh: float = 0.0
+    input_res: int = 256
+    output_res: int = 64
+    dzi: DZIConfig = field(default_factory=DZIConfig)
+    color_aug_prob: float = 0.0
+    bg_replace_prob: float = 0.5
+    bg_dir: str = ""
+    num_workers: int = 4            # thread-pool size for per-sample host work
+    prefetch: int = 2               # assembled batches buffered ahead
+    # per-instance GT-render cache: each instance rendered once in a frame
+    # that covers every crop of it, then warped per crop; res 0 = 2 *
+    # output_res; entries bound host memory (float16 attributes)
+    label_cache: bool = True
+    label_cache_res: int = 0
+    label_cache_entries: int = 20000
+    sampler: str = "training"       # training | repeat_factor | inf_subset
+    repeat_thresh: float = 0.01
+    subset_ratio: float = 1.0
+    filter_visib_thr: float = 0.0
+    with_depth: bool = False        # emit roi_depth crops
+    depth_aug_prob: float = 0.0
+    depth_aug_level: float = 0.1
+    # restrict the split to these object names; empty = all
+    object_filter: tuple[str, ...] = ()
+    truncate_fg: bool = False
     model_points: int = 512         # PM-loss points per ROI
     max_sym_rots: int = 32          # padded symmetry rotation set
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    eval_period: int = 0
+    test_bbox_type: str = "est"     # est | gt
+    # vsd/mssd/mspd among them add the BOP19 average recalls to the tables
+    # (PoseEvaluator.evaluate(bop19=True)); vsd also makes the eval loader
+    # emit the observed full-frame depth
+    error_types: tuple[str, ...] = ("ad", "rete", "re", "te", "proj",
+                                    "vsd", "mssd", "mspd")
+    use_pnp: bool = False
+    pnp_type: str = "ransac_pnp"
+    save_results_only: bool = False
 
 
 @dataclass(frozen=True)
@@ -270,22 +330,98 @@ class SelfSupConfig:
 @dataclass(frozen=True)
 class Config:
     exp_name: str = "default"
+    output_dir: str = "output"
     seed: int = 0
     model: PoseNetConfig = field(default_factory=PoseNetConfig)
     deepim: DeepIMConfig = field(default_factory=DeepIMConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    test: TestConfig = field(default_factory=TestConfig)
     renderer: RendererConfig = field(default_factory=RendererConfig)
     self_sup: SelfSupConfig = field(default_factory=SelfSupConfig)
     dist: DistConfig = field(default_factory=DistConfig)
+    ckpt_period: int = 5000
+    log_period: int = 100
+
+
+def _coerce(val: str, target_type):
+    if target_type is bool:
+        return val.lower() in ("1", "true", "yes")
+    if target_type is int:
+        return int(val)
+    if target_type is float:
+        return float(val)
+    if target_type is str:
+        return val
+    # tuples: comma-separated
+    return tuple(v.strip() for v in val.split(","))
+
+
+def apply_overrides(cfg: Config, opts: list[str]) -> Config:
+    """Apply 'a.b.c=value' overrides (the --opts of the CLIs), each value
+    coerced to the type of the field it replaces; tuples are
+    comma-separated. Raises on an unknown key."""
+    for opt in opts:
+        key, _, raw = opt.partition("=")
+        cfg = _replace_path(cfg, key.split("."), raw)
+    return cfg
+
+
+def _replace_path(obj, parts: list[str], raw: str):
+    name = parts[0]
+    names = {f.name for f in dataclasses.fields(obj)}
+    if name not in names:
+        raise KeyError(f"unknown config key: {name} on {type(obj).__name__}")
+    if len(parts) == 1:
+        cur = getattr(obj, name)
+        return dataclasses.replace(obj, **{name: _coerce(raw, type(cur))})
+    child = _replace_path(getattr(obj, name), parts[1:], raw)
+    return dataclasses.replace(obj, **{name: child})
+
+
+def gdrn_lm_base() -> Config:
+    """GDR-Net stage I for LINEMOD (configs/gdrn/lm_base.py): resnest50d,
+    256² ROI -> 64² output, 13 classes, regressed xyz (xyz_bin 1), 64
+    regions, allo_rot6d with centroid_z (REL); L1 xyz, BCE mask, CE region,
+    rotation-only symmetric PM, centroid and z; Ranger at 1e-4, cosine
+    anneal from 0.72 of 100k iterations, 24 images per batch, clip 35;
+    lm_pbr for training, lm for testing, uniform DZI (pad 1.5, scale and
+    shift 0.25), estimated test boxes."""
+    return Config(
+        exp_name="gdrn_lm_base",
+        model=PoseNetConfig(
+            name="GDRN", num_classes=13, input_res=256, output_res=64,
+            backbone=BackboneConfig(name="resnest50d"),
+            geo_head=GeoHeadConfig(
+                up_types=("deconv", "bilinear", "bilinear"),
+                feat_dim=256, num_regions=64, xyz_bin=1),
+            pnp_net=PnPNetConfig(
+                rot_type="allo_rot6d", trans_type="centroid_z", z_type="REL",
+                region_attention=True, with_2d_coord=True),
+            loss=LossConfig(
+                xyz_loss_type="L1", xyz_lw=1.0, mask_loss_type="BCE",
+                mask_lw=1.0, region_loss_type="CE", region_lw=1.0,
+                pm_lw=1.0, pm_loss_sym=True, pm_r_only=True,
+                centroid_lw=1.0, z_lw=1.0)),
+        solver=SolverConfig(
+            optimizer="ranger", base_lr=1e-4, anneal_method="cosine",
+            anneal_point=0.72, total_iters=100_000, ims_per_batch=24,
+            reference_bs=24, grad_clip_norm=35.0),
+        data=DataConfig(
+            train_datasets=("lm_pbr",), test_datasets=("lm",),
+            dzi=DZIConfig(type="uniform", pad_scale=1.5, scale_ratio=0.25,
+                          shift_ratio=0.25),
+            color_aug_prob=0.8, bg_replace_prob=0.5),
+        test=TestConfig(test_bbox_type="est"))
 
 
 def lm_flownet() -> Config:
-    """DeepIM FlowNet refiner for LINEMOD (configs/deepim/lm_flownet.py):
-    512 zoom, lamb 1.5, 4 train/test iterations, flow, mask, PM and trans
-    losses; Ranger at 1e-4, cosine anneal from 0.72 of 80k iterations, 8
-    ROIs per batch (no accumulation)."""
-    return Config(
+    """DeepIM FlowNet refiner for LINEMOD (configs/deepim/lm_flownet.py,
+    on gdrn_lm_base): 512 zoom, lamb 1.5, 4 train/test iterations, flow,
+    mask, PM and trans losses; Ranger at 1e-4, cosine anneal from 0.72 of
+    80k iterations, 8 ROIs per batch (no accumulation)."""
+    return dataclasses.replace(
+        gdrn_lm_base(),
         exp_name="deepim_lm_flownet512",
         deepim=DeepIMConfig(
             num_classes=13, input_h=512, input_w=512, in_channels=6,
@@ -298,6 +434,72 @@ def lm_flownet() -> Config:
             anneal_point=0.72, total_iters=80_000, ims_per_batch=8,
             reference_bs=8),
     )
+
+
+def gdrn_synthetic_smoke() -> Config:
+    """The end-to-end smoke config on the generated synthetic BOP set
+    (configs/gdrn/synthetic_smoke.py): micro backbone, 64² -> 16², 2
+    classes, head width 32 with 8 GN groups and 8 regions; adam at 3e-4
+    for 60 iterations (5 warm-up), 8 images per batch; 64 PM points, 4
+    symmetry rotations."""
+    return Config(
+        exp_name="gdrn_synthetic_smoke",
+        output_dir="/tmp/smoke_out",
+        model=PoseNetConfig(
+            num_classes=2, input_res=64, output_res=16,
+            backbone=BackboneConfig(name="micro"),
+            geo_head=GeoHeadConfig(feat_dim=32, num_gn_groups=8,
+                                   num_regions=8),
+            pnp_net=PnPNetConfig(featdim=32, num_gn_groups=8)),
+        solver=SolverConfig(optimizer="adam", base_lr=3e-4, total_iters=60,
+                            warmup_iters=5, ims_per_batch=8, reference_bs=8,
+                            ema_decay=0.999),
+        data=DataConfig(dataset_root="/tmp/bopdata",
+                        train_datasets=("synthetic",),
+                        test_datasets=("synthetic",),
+                        model_points=64, max_sym_rots=4,
+                        dzi=DZIConfig(pad_scale=1.5)),
+        ckpt_period=60, log_period=20)
+
+
+def deepim_synthetic_smoke() -> Config:
+    """DeepIM on the synthetic BOP set (configs/deepim/synthetic_smoke.py,
+    on gdrn_synthetic_smoke): 64² zoom, pose head width 32, 2 train/test
+    iterations; adam at 1e-4 for 15 iterations, 4 ROIs per batch."""
+    b = gdrn_synthetic_smoke()
+    return dataclasses.replace(
+        b, exp_name="deepim_synthetic_smoke",
+        deepim=DeepIMConfig(num_classes=2, input_h=64, input_w=64,
+                            pose_feat_dim=32, n_iter_train=2, n_iter_test=2,
+                            flow_lw=0.1, mask_lw=1.0, pm_lw=10.0),
+        solver=SolverConfig(optimizer="adam", base_lr=1e-4, total_iters=15,
+                            warmup_iters=0, ims_per_batch=4, reference_bs=4),
+        ckpt_period=15, log_period=5)
+
+
+# the repo's config files (which import the JAX package) -> the port's
+# functions that build the same Config
+CONFIGS = {
+    "configs/gdrn/lm_base.py": gdrn_lm_base,
+    "configs/gdrn/synthetic_smoke.py": gdrn_synthetic_smoke,
+    "configs/deepim/lm_flownet.py": lm_flownet,
+    "configs/deepim/synthetic_smoke.py": deepim_synthetic_smoke,
+}
+
+
+def load_config(path: str) -> Config:
+    """The Config of a repo config file, by its repo-relative path (a
+    leading './' and an absolute path inside the repo are taken too).
+    Raises for a path the port has no function for, listing those it has."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rel = os.path.relpath(os.path.abspath(path), root) \
+        if os.path.isabs(path) else os.path.normpath(path)
+    rel = rel.replace(os.sep, "/")
+    if rel not in CONFIGS:
+        raise KeyError(f"no port config for {path!r}; registered: "
+                       f"{sorted(CONFIGS)}")
+    return CONFIGS[rel]()
 
 
 def stage2_pose_flagship() -> Config:

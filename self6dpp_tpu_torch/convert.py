@@ -1,7 +1,7 @@
 """JAX-package variables (nested dicts of numpy arrays) -> the port's
 state_dicts, for DeepIM (its three variants), FlowNetS, GDRN and LPIPS,
-and the GDRN's state_dict back to JAX-package variables
-(gdrn_state_dict_to_flax).
+and the GDRN's and DeepIM's state_dicts back to JAX-package variables
+(gdrn_state_dict_to_flax, state_dict_to_flax).
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
 (flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
@@ -333,6 +333,23 @@ def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor
     return _convert(model, flat, gdrn_key_map(model), flat_hwc)
 
 
+def _state_dict_to_flax(sd: Mapping, key_map: dict[str, tuple[str, str]],
+                        flat_hwc: tuple[int, int, int] | None) -> dict:
+    tree: dict = {}
+    for tk, v in sd.items():
+        kind, fk = _flax_key(tk, key_map)
+        if fk is None:
+            continue
+        a = _from_torch_layout(v.detach().float().cpu().numpy(), kind,
+                               flat_hwc)
+        *path, leaf = fk.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a, dtype=np.float32)
+    return tree
+
+
 def gdrn_state_dict_to_flax(model, state_dict: Mapping | None = None) -> dict:
     """The port GDRN's state_dict (default: its own) as the JAX GDRN's
     variables {'params': ..., 'batch_stats': ...}, nested dicts of float32
@@ -340,19 +357,16 @@ def gdrn_state_dict_to_flax(model, state_dict: Mapping | None = None) -> dict:
     sd = model.state_dict() if state_dict is None else state_dict
     pn = model.pnp_net
     flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
-    key_map = gdrn_key_map(model)
-    tree: dict = {}
-    for tk, v in sd.items():
-        kind, fk = _flax_key(tk, key_map)
-        if fk is None:
-            continue
-        a = _from_torch_layout(v.detach().cpu().numpy(), kind, flat_hwc)
-        *path, leaf = fk.split(".")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(a, dtype=np.float32)
-    return tree
+    return _state_dict_to_flax(sd, gdrn_key_map(model), flat_hwc)
+
+
+def state_dict_to_flax(model: DeepIM, state_dict: Mapping | None = None
+                       ) -> dict:
+    """The port DeepIM's state_dict (default: its own) as the JAX DeepIM's
+    variables ({'params': ...[, 'batch_stats': ...]}): the inverse of
+    flax_to_state_dict."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    return _state_dict_to_flax(sd, deepim_key_map(model), model.feat_hwc)
 
 
 # reference LPIPS (PerceptualSimilarity, alexnet) module names -> the port's

@@ -5,8 +5,9 @@ shared library, self6dpp_tpu_torch/_build/lib<name>-<hash>.so, where <hash>
 covers the source and the flags: a library is built once per content and
 reused. nvcc's output, with ptxas' resource lines (-Xptxas -v), is kept
 beside it as lib<name>-<hash>.log; resources() reads each kernel's
-registers, static shared memory and spills from there. Build at first use,
-never at import.
+registers, static shared memory and spills from there. The host routines,
+csrc/<name>.c, build the same way with the host C compiler (load_host).
+Build at first use, never at import.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda)")
 
 
-def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+# the host routines (csrc/*.c): plain C, no GPU
+CC_FLAGS = ("-O3", "-std=c11", "-shared", "-fPIC")
+
+
+def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> Path:
+    src = (SRC_DIR / f"{name}{ext}").read_bytes()
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -123,6 +128,35 @@ def resources(name: str) -> dict[str, dict[str, int]]:
             cur.update(registers=int(m.group(1)),
                        smem_static_bytes=int(smem.group(1)) if smem else 0)
     return out
+
+
+def host_cc() -> str:
+    """The host C compiler: $CC, else cc, gcc or clang on PATH."""
+    for cc in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        found = cc and shutil.which(cc)
+        if found:
+            return found
+    raise RuntimeError("no host C compiler ($CC, cc, gcc, clang)")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The library of the host routine csrc/<name>.c, built first (once per
+    content) with the host C compiler. Raises with the compiler's output on
+    failure."""
+    lib = _lib_path(name, ".c", CC_FLAGS)
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        res = subprocess.run([host_cc(), *CC_FLAGS, "-o", tmp,
+                              str(SRC_DIR / f"{name}.c")],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"cc failed on {name}.c ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, lib)             # atomic: no half-written library
+    return ctypes.CDLL(str(lib))
 
 
 def load(name: str) -> ctypes.CDLL:

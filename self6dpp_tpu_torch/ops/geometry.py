@@ -131,3 +131,11 @@ def backproject_depth(depth: Tensor, K: Tensor) -> Tensor:
     x = (us - px) * depth / fx
     y = (vs - py) * depth / fy
     return torch.stack([x, y, depth], dim=-1)
+
+
+def rot_angle_deg(R1: Tensor, R2: Tensor) -> Tensor:
+    """Geodesic angle in degrees between (..., 3, 3) rotations."""
+    m = R1 @ R2.transpose(-1, -2)
+    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    cos = torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos))

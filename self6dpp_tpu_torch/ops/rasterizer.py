@@ -176,6 +176,34 @@ def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
     return fine(*args)
 
 
+def rasterize_single(verts, faces, attrs, K, R, t, **kw) -> RasterOut:
+    """One mesh under one pose: verts (V,3), faces (F,3), attrs (V,D), K,
+    R (3,3), t (3,), through rasterize_batch as a batch of one (its
+    keywords); outputs without the batch axis."""
+    R = torch.as_tensor(R)[None]
+    t = torch.as_tensor(t)[None]
+    out = rasterize_batch(verts, faces, attrs, K, R, t, **kw)
+    return RasterOut(*(x[0] for x in out))
+
+
+def render_xyz_mask_depth(verts, faces, K, R, t, height, width, **kw):
+    """Object-frame xyz, hard mask, depth and soft silhouette of B poses
+    (rasterize_batch with the vertices as the attribute)."""
+    out = rasterize_batch(verts, faces, verts, K, R, t,
+                          height=height, width=width, **kw)
+    return {"xyz": out.attr, "mask": out.mask, "depth": out.depth,
+            "prob": out.prob}
+
+
+def render_color(verts, faces, colors, K, R, t, height, width, **kw):
+    """Vertex-colour render of B poses: color, soft silhouette, hard mask,
+    depth."""
+    out = rasterize_batch(verts, faces, colors, K, R, t,
+                          height=height, width=width, **kw)
+    return {"color": out.attr, "prob": out.prob, "mask": out.mask,
+            "depth": out.depth}
+
+
 def compute_vertex_normals(verts: Tensor, faces: Tensor) -> Tensor:
     """Area-weighted vertex normals of one mesh (V,3), (F,3): each face's
     edge cross product added to its three vertices (index_add_), then

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, so it
-runs on a machine that has neither."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+OpenCV, PIL or imageio, nor the repo's tools/ and configs/ (which import the
+JAX package), so it runs on a machine that has none of them."""
 
 import os
 import pkgutil
@@ -26,7 +27,8 @@ def test_every_module_imports_without_jax():
         m.name for m in pkgutil.walk_packages([PKG], "self6dpp_tpu_torch.")]
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'self6dpp_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'self6dpp_tpu',\n"
+        "             'cv2', 'PIL', 'imageio', 'tools', 'configs'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -38,8 +40,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|self6dpp_tpu)\b"
-                     r"|self6dpp_tpu\.", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|self6dpp_tpu|cv2|PIL"
+                     r"|imageio|tools|configs)\b|self6dpp_tpu\.", re.M)
     for path in port_files():
         with open(path) as f:
             text = f.read()

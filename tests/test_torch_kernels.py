@@ -64,6 +64,65 @@ def test_fine_raster_matches_plain(cuda_device, with_prob, persp, tile_px,
                                    rtol=0, atol=1e-5, msg=name)
 
 
+def eval_inputs(dev, which):
+    """Face tables and candidates at the eval slice's two B1 shapes:
+    'label_cache', the loader's ground-truth renders (24 instances of a
+    2-subdivision icosphere in their cache frames, 128², tile 8, K 64);
+    'vsd', the evaluator's depth renders (8 poses of a 5120-face icosphere
+    in LM's 480x640 frame, tile 16, K 128, zero attributes)."""
+    from self6dpp_tpu_torch.ops.zoom import zoom_K
+    rng = np.random.default_rng(5)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    if which == "label_cache":
+        b, res, tile, k = 24, 128, 8, 64
+        verts, faces = make_icosphere(radius=0.07, subdivisions=2)
+        attrs = verts
+        K = np.array([[160.0, 0, 80], [0, 160, 60], [0, 0, 1]], np.float32)
+        t = np.stack([rng.uniform(-0.1, 0.1, b), rng.uniform(-0.08, 0.08, b),
+                      rng.uniform(0.6, 0.9, b)], 1)
+        c = t[:, :2] / t[:, 2:] * 160 + [80, 60]          # projected centre
+        side = 2 * 0.07 * 160 / t[:, 2] * 2.0             # covers the crops
+        boxes = np.concatenate([c - side[:, None] / 2, c + side[:, None] / 2], 1)
+        K = zoom_K(f32(K), f32(boxes), (res, res))
+        h = w = res
+    else:
+        b, h, w, tile, k = 8, 480, 640, 16, 128
+        verts, faces = make_icosphere(radius=0.08, subdivisions=4)
+        attrs = np.zeros_like(verts)
+        K = f32(np.broadcast_to([[572.4114, 0, 325.2611],
+                                 [0, 573.57043, 242.04899], [0, 0, 1]],
+                                (b, 3, 3)))
+        z = rng.uniform(0.6, 1.2, b)
+        uv = rng.uniform([100, 80], [540, 400], (b, 2))
+        t = np.stack([(uv[:, 0] - 325.26) / 572.41 * z,
+                      (uv[:, 1] - 242.05) / 573.57 * z, z], 1)
+    R = Rotation.random(b, random_state=6).as_matrix()
+    ftab, cand = TR.raster_inputs(f32(verts), torch.as_tensor(faces, device=dev),
+                                  f32(attrs), K, f32(R), f32(t), h, w, tile, k)
+    return (ftab, cand, h, w, tile, 1.0, False, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["label_cache", "vsd"])
+def test_fine_raster_eval_shapes_match_plain(cuda_device, which):
+    """B1 at the loader's label renders and the evaluator's VSD renders
+    (hard, perspective z) against its plain version: mask and face_id bit
+    for bit, depth and attributes within 1e-5."""
+    call = eval_inputs(cuda_device, which)
+    assert RC.cand_depth_sorted(call[0], call[1])
+    before = RC.fine_raster.launches
+    got = RC.fine_raster(*call)
+    torch.cuda.synchronize()
+    assert RC.fine_raster.launches == before + 1
+    ref = RC.fine_raster_plain(*call)
+    assert torch.equal(got.mask, ref.mask)
+    assert torch.equal(got.face_id, ref.face_id)
+    assert (ref.mask.flatten(1).sum(1) > 0).all()
+    for name in ("depth", "attr", "bary"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
+                                   rtol=0, atol=1e-5, msg=name)
+
+
 @pytest.mark.cuda
 def test_fine_raster_rejects_bad_inputs(cuda_device):
     ftab, cand = sphere_inputs(cuda_device, 64, 64, 16)
