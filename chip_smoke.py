@@ -23,9 +23,12 @@
   * evaluation on BOP data (test_gdrn.sh, test_deepim.sh): the synthetic
     BOP set written by the port, the GDRN eval CLI at lm_base width and
     the DeepIM one at lm_flownet on it (the eval loader's label renders,
-    the evaluator's VSD renders), and the evaluator at LM's 480x640 frame.
+    the evaluator's VSD renders), and the evaluator at LM's 480x640 frame;
+  * training through the CLIs (train_gdrn.sh, train_deepim.sh,
+    train_self6dpp.sh) on that set: lm_base, lm_flownet and lm_ss at full
+    width, the loader in train mode, checkpoints, resume, warm start.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--record FILE]
 
 Weights are random, drawn from a seed. Phases (each checks; a failure
 exits non-zero):
@@ -106,7 +109,22 @@ exits non-zero):
      batch), then the
      evaluator with bop19 at LM's frame (13 objects, 5120-face meshes, 8
      noisy predictions each, a synthetic observed depth; tables equal)
-     and hold B1 at its VSD renders (8 x 480x640, tile 16, K 128).
+     and hold B1 at its VSD renders (8 x 480x640, tile 16, K 128);
+ 19. run the GDRN training CLI (train_gdrn) at lm_base width on the set's
+     train split, colour augmentation on every image, 4 iterations, then
+     resumed to 6: finite losses, each iteration once in metrics.json,
+     the checkpoints; hold B1 at the train labels' cache; ms per
+     iteration, images/s, the loader's wait;
+ 20. run the DeepIM training CLI (train_deepim) at lm_flownet, 3
+     iterations: finite losses, 8 B1 launches a step at 512²;
+ 21. run the stage-II CLI (train_self6dpp) at lm_ss, warm-started from
+     phase 19's step (aimed as phase 5's model) with perturbed GT pseudo
+     poses: 3 fp32 iterations through the kernels and the plain versions
+     (losses, student and teacher agree), B1, B2 and B3 held on the kernel
+     run's last step (B3's gradient away from Lab ties), 6 bf16
+     iterations with one B1, B2 and B3 launch each, and 4 iterations of
+     configs/self6dpp/synthetic_smoke.py (geo, synsup, pose with the
+     refiner and repj).
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -117,6 +135,7 @@ as the last line. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -216,11 +235,9 @@ TOL_B2 = 1e-4                     # d ftab, of its largest magnitude
 TOL_B3_VALUE = 1e-5               # LAB value, relative
 TOL_B3_GRAD = 1e-6                # LAB gradient, of its largest magnitude
 TOL_S2_LOSS = 1e-4                # fp32 step losses, kernel vs plain, relative
-# fp32 params after 2 steps, kernel vs plain: the second step's L1 terms
-# (teacher vs student, nearly equal) flip sign on rounding-level differences,
-# which moves single parameters by ~lr; the first reading on an H100 was
-# 1.7e-5 with the parameters moved by 7.8e-3 and the control 4.2e-3 away,
-# and with the whole loss suite 7.7e-6, moved 7.4e-3, control 4.5e-3 away
+# fp32 params after each of 2 steps, kernel vs plain, each step from one
+# state (check_stage2_fp32: chained steps amplify rounding through the
+# teacher-student L1 signs, so their params are recorded, not held)
 TOL_S2_PARAMS = 1e-4
 S2_MOVED = 20                     # the steps move the params > 20x the tolerance
 TOL_S2_BF16 = 2e-3                # bf16 vs fp32 losses of the first step:
@@ -800,13 +817,27 @@ def lab_ops(pred, gt, no_l=True):
     return float(ops), float(sfu)
 
 
-def check_stage2_kernels(cfg, inputs):
+def lab_ties(pred, gt, band):
+    """(B,S,S) True where the a or b channel of pred and gt (in float64)
+    differ by less than `band` Lab units: there the L1's subgradient is the
+    sign of a rounding error (a grey pixel's a and b are rounding-level
+    numbers; colour augmentation's grayscale blend makes such pixels)."""
+    from self6dpp_tpu_torch.ops.color import _lab_channels
+    _, ap, bp = _lab_channels(pred.double())
+    _, ag, bg = _lab_channels(gt.double())
+    return ((ap - ag).abs() < band) | ((bp - bg).abs() < band)
+
+
+def check_stage2_kernels(cfg, inputs, tie_band=None):
     """Phase 5: B1 with the soft silhouette, B2 and B3 against their plain
     versions on one stage-II step's inputs (stage2_inputs), timed, with
     their bounds. B2 is held twice: on the cotangents the whole loss suite
     sends (prob's from the mask loss; attr's from LPIPS and MS-SSIM, which
     read the masked render after LAB's gradient is injected into it;
-    depth's from the chamfer) and on seeded random ones."""
+    depth's from the chamfer) and on seeded random ones. With tie_band
+    (phase 21, on colour-augmented images), B3's gradient is held at the
+    pixels outside lab_ties(tie_band) (their count is recorded); its value
+    everywhere."""
     from self6dpp_tpu_torch.ops import lab_cuda as LC
     from self6dpp_tpu_torch.ops import raster_cuda as RC
     ftab, cand, cts, lab = inputs
@@ -879,6 +910,12 @@ def check_stage2_kernels(cfg, inputs):
     rsval, rg_raw, rscale = LC.lab_value_grad_scaled_plain(*lab, True, w)
     # the same chain in float64 (the plain version on float64 copies)
     fval, fgrad = LC.lab_value_grad_plain(*(x.double() for x in lab), True)
+    ties = 0
+    if tie_band is not None:
+        keep = (~lab_ties(*lab[:2], tie_band))[..., None]
+        ties = int((~keep).sum())
+        grad, rgrad, fgrad, g_raw, rg_raw = (
+            x * keep for x in (grad, rgrad, fgrad, g_raw, rg_raw))
     scale, ftop = rgrad.abs().max().item(), fgrad.abs().max().item()
     gerr = (grad - rgrad).abs().max().item()
     g_raw_err = (g_raw - rg_raw).abs().max().item()
@@ -897,7 +934,7 @@ def check_stage2_kernels(cfg, inputs):
               (rgrad.double() - fgrad).abs().max().item() / ftop,
           "same_bits_twice": bool(torch.equal(val, val2)
                                   and torch.equal(val, sval)),
-          "mask_pixels": lab[2].sum().item()}
+          "mask_pixels": lab[2].sum().item(), "tie_pixels": ties}
     require(rval.item() > 0 and scale > 0, "B3: empty LAB input")
     require(b3["same_bits_twice"], "B3 value differs between runs")
     require(b3["value_rel_err"] <= TOL_B3_VALUE
@@ -1011,23 +1048,47 @@ def max_abs_diff(a, b):
     return max((a[k] - b[k]).abs().max().item() for k in a)
 
 
+def snapshot(state):
+    """A copy of a TrainState's student, teacher, solver state and step."""
+    return copy.deepcopy({
+        "step": state.step, "model": state.model.state_dict(),
+        "teacher": (None if state.teacher is None
+                    else state.teacher.state_dict()),
+        "opt": state.opt.state_dict()})
+
+
+def restore(state, snap) -> None:
+    """Puts `snapshot`'s copy back into a state of the same build."""
+    state.model.load_state_dict(snap["model"])
+    if state.teacher is not None:
+        state.teacher.load_state_dict(snap["teacher"])
+    state.opt.load_state_dict(snap["opt"])
+    state.step = snap["step"]
+
+
 def run_steps(cfg, device, batch_size, n, impl="kernel", built=None,
-              refiner=None):
+              refiner=None, starts=None):
     """n stage-II steps from the seeded weights (`built`, build_stage2's
     result for cfg, or a new one), with the DeepIM refiner `refiner` when
-    given: (initial params, metrics per step, final params)."""
+    given; step i starts from the snapshot starts[i] where `starts` has one,
+    else from where step i - 1 left: (initial params, metrics per step,
+    params after each step, snapshot after each step)."""
     from self6dpp_tpu_torch.engine import self_engine as se
     model, state, batch, lpips = built or se.build_stage2(
         cfg, batch_size, device, seed=SEED)
     init = params_of(model)
     step = se.make_self_train_step(cfg, model, lpips, impl=impl,
                                    refiner=refiner)
-    metrics = []
-    for _ in range(n):
+    metrics, params, snaps = [], [], []
+    for i in range(n):
+        if starts and i in starts:
+            restore(state, starts[i])
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
+        params.append(params_of(model))
+        snaps.append(snapshot(state))
     torch.cuda.synchronize()
-    return init, metrics, params_of(model)
+    return init, metrics, params, snaps
 
 
 def loss_err(a, b):
@@ -1042,43 +1103,64 @@ def loss_err(a, b):
 
 
 def check_stage2_fp32(cfg32, device, batch_size, built, refiner=None):
-    """Phase 6: two float32 steps through the kernels (on `built`, the
-    untouched build_stage2 result phase 5 read its inputs from) and two
-    through the plain versions, from the same weights and batch (and the
-    refiner, when given), with TF32 off and
-    cuDNN deterministic: losses within TOL_S2_LOSS, parameters within
-    TOL_S2_PARAMS. The check can fail: the parameters moved more than
-    S2_MOVED x TOL_S2_PARAMS, and a step with every loss that reads the
-    render at weight 0 (S2_RENDER_LOSSES) ends more than TOL_S2_PARAMS
-    away."""
+    """Phase 6: float32 steps through the kernels (on `built`, the untouched
+    build_stage2 result phase 5 read its inputs from) and through the plain
+    versions, from the same weights and batch (and the refiner, when
+    given), with TF32 off and cuDNN deterministic. Two plain steps; the
+    kernels' first step from the seeded weights and their second from the
+    plain run's state after its first, so each step is held from one
+    state: losses within TOL_S2_LOSS, parameters after each step within
+    TOL_S2_PARAMS. Two steps chained through the kernels are held beside
+    the plain ones on their losses (TOL_S2_LOSS) and their parameters are
+    recorded, not held: from the second step on the mean teacher (EMA
+    decay 5e-4 at step 1) is within rounding of the student, the
+    teacher-student L1 terms take their signs from the last bits, and B2's
+    atomics (fine_raster_bwd.cu) vary those bits from run to run, so the
+    chained parameters part by an amount that varies from run to run and
+    has no bearing on the kernels. The check can fail: the parameters
+    moved more than S2_MOVED x TOL_S2_PARAMS, and two steps with every loss
+    that reads the render at weight 0 (S2_RENDER_LOSSES) end more than
+    TOL_S2_PARAMS away."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        init, mk, pk = run_steps(cfg32, device, batch_size, 2, "kernel",
-                                 built, refiner)
-        _, mp, pp = run_steps(cfg32, device, batch_size, 2, "plain",
-                              refiner=refiner)
+        init, mk, pk, _ = run_steps(cfg32, device, batch_size, 2, "kernel",
+                                    built, refiner)
+        _, mp, pp, sp = run_steps(cfg32, device, batch_size, 2, "plain",
+                                  refiner=refiner)
+        _, mk2, pk2, _ = run_steps(cfg32, device, batch_size, 1, "kernel",
+                                   refiner=refiner, starts={0: sp[0]})
         ctrl = dataclasses.replace(cfg32, self_sup=dataclasses.replace(
             cfg32.self_sup, **{k: 0.0 for k in S2_RENDER_LOSSES}))
-        _, mc, pc = run_steps(ctrl, device, batch_size, 2, "kernel",
-                              refiner=refiner)
+        _, mc, pc, _ = run_steps(ctrl, device, batch_size, 2, "kernel",
+                                 refiner=refiner)
     finally:
         torch.backends.cudnn.deterministic = det
-    for m in mk:
+    for m in mk + mk2:
         require(all(np.isfinite(v) for v in m.values()), "non-finite loss", m)
+    held = [mk[0], mk2[0]]
     detail = {
-        "losses_kernel": mk, "losses_plain": mp, "losses_control": mc,
-        "loss_rel_err": max(loss_err(a, b) for a, b in zip(mk, mp)),
-        "params_kernel_vs_plain_max_abs": max_abs_diff(pk, pp),
-        "params_moved_max_abs": max_abs_diff(pk, init),
-        "params_vs_control_max_abs": max_abs_diff(pk, pc),
+        "losses_kernel": held, "losses_plain": mp, "losses_control": mc,
+        "loss_rel_err": max(loss_err(a, b) for a, b in zip(held, mp)),
+        "params_kernel_vs_plain_max_abs": max(
+            max_abs_diff(pk[0], pp[0]), max_abs_diff(pk2[0], pp[1])),
+        "params_by_step_kernel_vs_plain_max_abs": [
+            max_abs_diff(pk[0], pp[0]), max_abs_diff(pk2[0], pp[1])],
+        "chained_losses_kernel": mk,
+        "chained_loss_rel_err": max(loss_err(a, b) for a, b in zip(mk, mp)),
+        "chained_params_kernel_vs_plain_max_abs": max_abs_diff(pk[1], pp[1]),
+        "params_moved_max_abs": max_abs_diff(pk[1], init),
+        "params_vs_control_max_abs": max_abs_diff(pk[1], pc[1]),
         "lr": cfg32.solver.base_lr}
     require(detail["loss_rel_err"] <= TOL_S2_LOSS, "fp32 step losses",
             detail["loss_rel_err"])
+    require(detail["chained_loss_rel_err"] <= TOL_S2_LOSS,
+            "fp32 chained step losses", detail["chained_loss_rel_err"])
     require(detail["params_kernel_vs_plain_max_abs"] <= TOL_S2_PARAMS,
-            "fp32 step params", detail["params_kernel_vs_plain_max_abs"])
+            "fp32 step params",
+            detail["params_by_step_kernel_vs_plain_max_abs"])
     require(detail["params_moved_max_abs"] > S2_MOVED * TOL_S2_PARAMS,
             "the steps left the params where they were",
             detail["params_moved_max_abs"])
@@ -2315,14 +2397,16 @@ def make_synthetic_sets(device):
         "seconds": secs, "max_unit_diff": worst, "values_differing": differ}
 
 
-def eval_cli(main, argv, device, impl, deterministic, heights=()):
-    """One in-process run of an eval CLI (the port's tools.*.main), cuDNN
-    deterministic or as the CLI leaves it, the launch counts set to 0 just
-    before and read just after, B1 launches tallied by height, and the
-    first render inputs at `heights` recorded. Returns (result, launches,
-    by height, inputs, wall seconds)."""
+def run_cli(main, argv, device, impl="kernel", deterministic=None,
+            heights=()):
+    """One in-process run of a CLI (the port's tools.*.main), cuDNN
+    deterministic or not (None: as the CLI leaves it), the launch counts
+    set to 0 just before and read just after, B1 and B2 launches tallied
+    by height, and the first render inputs at `heights` recorded. Returns
+    (result, launches, {kernel: {height: n}}, inputs, wall seconds)."""
     det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = deterministic
+    if deterministic is not None:
+        torch.backends.cudnn.deterministic = deterministic
     zero_kernel_launches()
     t0 = time.perf_counter()
     try:
@@ -2331,8 +2415,8 @@ def eval_cli(main, argv, device, impl, deterministic, heights=()):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = det
-    return (res, kernel_launches(), dict(tally["fine_raster_fwd"]), seen,
-            time.perf_counter() - t0)
+    return (res, kernel_launches(), {k: dict(v) for k, v in tally.items()},
+            seen, time.perf_counter() - t0)
 
 
 def rows_equal(a, b):
@@ -2398,9 +2482,10 @@ def run_test_gdrn(root, device):
                 "--opts", f"data.dataset_root={root}",
                 "data.test_datasets=synthetic", "model.num_classes=2",
                 f"output_dir={os.path.join(out, run)}", *extra]
-        runs[run] = eval_cli(train_gdrn.main, argv, device, impl, det,
-                             heights=(LABEL_RES,))
-    res, launches, by_h, seen, _ = runs["kernel"]
+        runs[run] = run_cli(train_gdrn.main, argv, device, impl, det,
+                            heights=(LABEL_RES,))
+    res, launches, tally, seen, _ = runs["kernel"]
+    by_h = tally["fine_raster_fwd"]
     plain, timed = runs["plain"], runs["timed"]
     require(res["tables"] == plain[0]["tables"],
             "test_gdrn tables: kernel vs plain")
@@ -2447,8 +2532,9 @@ def run_test_deepim(root, device):
                 "data.test_datasets=synthetic", "model.num_classes=2",
                 "deepim.num_classes=2",
                 f"output_dir={os.path.join(SYN_DIR, 'out', run)}", *extra]
-        runs[run] = eval_cli(train_deepim.main, argv, device, impl, det)
-    res, launches, by_h, _, _ = runs["kernel"]
+        runs[run] = run_cli(train_deepim.main, argv, device, impl, det)
+    res, launches, tally, _, _ = runs["kernel"]
+    by_h = tally["fine_raster_fwd"]
     plain, timed = runs["plain"], runs["timed"]
     gap = pose_gap(res["results"], plain[0]["results"])
     same_tables = res["tables"] == plain[0]["tables"]
@@ -2556,6 +2642,374 @@ def run_lm_evaluator(meshes, device):
         "avg": avg}
 
 
+# ---------------------------------------------------------- training slice
+TRAIN_ITERS = 4                   # phase 19: iterations of the first run
+RESUME_ITERS = 6                  # and the total of the resumed run
+DI_TRAIN_ITERS = 3                # phase 20
+S2_CLI_ITERS = 3                  # phase 21: fp32 runs, kernel vs plain
+S2_CLI_TIMED = 6                  # phase 21: the bf16 run as users run it
+SMOKE_ITERS = 4                   # phase 21: synthetic_smoke (geo, synsup
+                                  # twice, pose with the seed's draws)
+TRAIN_DIR = os.path.join(SYN_DIR, "train")
+# phase 21: B3's gradient is held away from pixels whose a or b differ by
+# less than this (Lab units; ~1e-3 of a just-noticeable difference): lm_ss
+# augments colour, and a grey pixel's a and b are rounding-level numbers,
+# so there the L1's sign is a rounding error's (an H100 run read 5598
+# such gradient entries, 1866 pixels of 524288, black render against grey
+# ROI pixels, the plain float32 chain as far from float64 there as B3)
+LAB_TIE_BAND = 1e-3
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def loss_rows(rows):
+    """metrics.json rows as {loss term: value}, the clock left out."""
+    return [{k: v for k, v in r.items() if k.startswith(("loss", "total"))}
+            for r in rows]
+
+
+def check_finite_losses(rows, name, n):
+    require([r["iteration"] for r in rows] == list(range(1, n + 1)), name,
+            "iterations", [r["iteration"] for r in rows])
+    for r in loss_rows(rows):
+        require(r and all(np.isfinite(v) for v in r.values()), name,
+                "non-finite loss", r)
+
+
+def loop_split(res, batch, rows):
+    """ms per iteration of the training loop (metrics.json's time_per_iter:
+    log_period 1 copies each step's metrics to the host, so it holds the
+    step's device time) and its split: the wait for the loader's batch on
+    the device and the rest (the step); the first iteration (warm-up) left
+    out; the loader's host and label-render ms per batch; images/s."""
+    it = [r["time_per_iter"] for r in rows[1:]]
+    waits = [t["wait_s"] for t in res["timings"][1:]]
+    lt = res.get("loader_timings") or res["timings"]
+    per_iter = float(np.median(it) * 1e3)
+    wait = float(np.median(waits) * 1e3)
+    return {"iterations_timed": len(it), "ms_per_iter": per_iter,
+            "ms_per_iter_range": [min(it) * 1e3, max(it) * 1e3],
+            "loader_wait_ms": wait, "step_ms": per_iter - wait,
+            "loader_wait_share": wait / per_iter,
+            "images_per_s": batch / (per_iter / 1e3),
+            "loader_host_ms": float(np.median(
+                [t["host_s"] for t in lt[1:]]) * 1e3),
+            "loader_label_render_ms": float(np.median(
+                [t["label_render_s"] for t in lt[1:]]) * 1e3)}
+
+
+def syn_opts(root, out, *extra):
+    return ["--opts", f"data.dataset_root={root}",
+            "data.train_datasets=synthetic", "data.test_datasets=synthetic",
+            "model.num_classes=2", f"output_dir={out}", "log_period=1",
+            *extra]
+
+
+def run_train_gdrn(root, device):
+    """Phase 19: train_gdrn at lm_base width (resnest50d, 256² -> 64², 24
+    ROIs a batch, bf16, Ranger) on the synthetic set's train split, 2
+    classes, colour augmentation on every image (the blur runs where
+    drawn), TRAIN_ITERS iterations with a checkpoint every TRAIN_ITERS;
+    then again with --resume to RESUME_ITERS (its last step saved by the
+    forced final save): metrics.json holds every iteration once, the
+    resumed run takes the remaining ones, both steps are kept. B1
+    renders the train labels' cache (24 x 128², tile 8, K 64). Returns
+    (the checkpoint directory, B1's first label-cache inputs, the
+    record)."""
+    from self6dpp_tpu_torch.tools import train_gdrn
+    out = os.path.join(TRAIN_DIR, "gdrn")
+    argv = ["--config", "configs/gdrn/lm_base.py"] + syn_opts(
+        root, out, f"ckpt_period={TRAIN_ITERS}", "data.color_aug_prob=1")
+    res, launches, by_h, seen, wall = run_cli(
+        train_gdrn.main, argv + [f"solver.total_iters={TRAIN_ITERS}"],
+        device, heights=(LABEL_RES,))
+    rows = read_metrics(res["metrics"])
+    check_finite_losses(rows, "train_gdrn", TRAIN_ITERS)
+    ckpt = os.path.join(os.path.dirname(res["metrics"]), "ckpt")
+    from self6dpp_tpu_torch.engine.checkpoint import step_dirs
+    require(step_dirs(ckpt) == ([TRAIN_ITERS], []), "train_gdrn steps",
+            step_dirs(ckpt))
+    require(by_h["fine_raster_fwd"].get(LABEL_RES, 0) > 0
+            and launches["fine_raster_bwd"] == 0, "train_gdrn B1 launches",
+            by_h)
+    res2, _, _, _, wall2 = run_cli(
+        train_gdrn.main, argv[:2] + ["--resume"] + argv[2:]
+        + [f"solver.total_iters={RESUME_ITERS}"], device)
+    rows2 = read_metrics(res2["metrics"])
+    check_finite_losses(rows2, "train_gdrn resumed", RESUME_ITERS)
+    require(rows2[:TRAIN_ITERS] == rows and res2["state"].step == RESUME_ITERS
+            and len(res2["timings"]) == RESUME_ITERS - TRAIN_ITERS,
+            "train_gdrn resume redid iterations", len(res2["timings"]))
+    require(step_dirs(ckpt) == ([TRAIN_ITERS, RESUME_ITERS], []),
+            "train_gdrn steps after resume", step_dirs(ckpt))
+    return ckpt, seen[LABEL_RES], {
+        "config": "gdrn_lm_base", "batch": 24, "compute_dtype": "bfloat16",
+        "iterations": TRAIN_ITERS, "resumed_to": RESUME_ITERS,
+        "wall_s": wall, "wall_s_resumed": wall2,
+        "b1_launches_by_height": by_h["fine_raster_fwd"],
+        "last_losses": loss_rows(rows2)[-1],
+        **loop_split(res, 24, rows)}
+
+
+def run_train_deepim(root, device):
+    """Phase 20: train_deepim at lm_flownet (FlowNetS, 512² zoom, 4 train
+    iterations, 8 ROIs a batch, bf16) on the train split, 2 classes,
+    DI_TRAIN_ITERS iterations: finite losses; B1 8 times a step at 512²
+    (DI_LAUNCHES) and at the label cache, no B2."""
+    from self6dpp_tpu_torch.tools import train_deepim
+    argv = ["--config", "configs/deepim/lm_flownet.py"] + syn_opts(
+        root, os.path.join(TRAIN_DIR, "deepim"), "deepim.num_classes=2",
+        f"solver.total_iters={DI_TRAIN_ITERS}", "ckpt_period=0")
+    res, launches, by_h, _, wall = run_cli(train_deepim.main, argv, device)
+    rows = read_metrics(res["metrics"])
+    check_finite_losses(rows, "train_deepim", DI_TRAIN_ITERS)
+    fwd = by_h["fine_raster_fwd"]
+    require(fwd.get(512) == DI_LAUNCHES["fine_raster_fwd"] * DI_TRAIN_ITERS
+            and fwd.get(LABEL_RES, 0) > 0
+            and launches["fine_raster_bwd"] == 0, "train_deepim B1 launches",
+            by_h)
+    return {"config": "deepim_lm_flownet512", "batch": 8, "iterations": 4,
+            "compute_dtype": "bfloat16", "wall_s": wall,
+            "b1_launches_by_height": fwd, "last_losses": loss_rows(rows)[-1],
+            **loop_split(res, 8, rows)}
+
+
+def write_pseudo_dets(root):
+    """Phase 21's --det-file for the train split: each instance's box, and
+    as pose_est and pose_refine its GT pose perturbed (5 and 2 deg, (5, 5,
+    10) and (2, 2, 4) mm std) from a fixed seed."""
+    from scipy.spatial.transform import Rotation
+    from self6dpp_tpu_torch.data.bop import load_bop_split, save_detections
+    from self6dpp_tpu_torch.data.ref import get_meta
+    rng = np.random.default_rng(SEED + 21)
+    dets = {}
+    split = os.path.join(root, get_meta("synthetic").name, "train")
+    for rec in load_bop_split(split):
+        out = []
+        for inst in rec.instances:
+            poses = []
+            for deg, mm in ((5, (5, 5, 10)), (2, (2, 2, 4))):
+                dR = Rotation.from_euler("xyz", rng.normal(0, deg, 3),
+                                         degrees=True).as_matrix()
+                t = inst.t + rng.normal(0, np.asarray(mm) * 1e-3)
+                poses.append(np.concatenate([dR @ inst.R, t[:, None]], 1))
+            x1, y1, x2, y2 = inst.bbox_visib
+            out.append({"obj_id": inst.obj_id, "score": 1.0,
+                        "bbox_est": [x1, y1, x2 - x1, y2 - y1],
+                        "pose_est": poses[0].reshape(-1),
+                        "pose_refine": poses[1].reshape(-1)})
+        dets[rec.scene_im_id] = out
+    path = os.path.join(TRAIN_DIR, "pseudo_dets.json")
+    save_detections(path, dets)
+    return path
+
+
+def aim_checkpoint(ckpt, root, cfg):
+    """Phase 21's warm start: TRAIN_ITERS stage-I iterations from random
+    weights (at the warm-up's learning rate) predict no usable pose, so the
+    student render would be empty. The latest step's student and teacher
+    are aimed as phase 5 aims its model (self_engine.aim_heads_: identity
+    rotation, the train split's median relative depth, a mask logit of 10)
+    and written back."""
+    from self6dpp_tpu_torch.data.bop import load_bop_split
+    from self6dpp_tpu_torch.data.ref import get_meta
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.checkpoint import (load_params_npz,
+                                                      save_params_npz,
+                                                      step_dirs)
+    from self6dpp_tpu_torch.engine.gdrn_engine import build_gdrn
+    recs = load_bop_split(os.path.join(root, get_meta("synthetic").name,
+                                       "train"))
+    insts = [i for r in recs for i in r.instances]
+    side = np.asarray([max(i.bbox_visib[2] - i.bbox_visib[0],
+                           i.bbox_visib[3] - i.bbox_visib[1])
+                       for i in insts]) * cfg.data.dzi.pad_scale
+    batch = {"gt_trans": torch.as_tensor(np.stack([i.t for i in insts])),
+             "resize_ratio": torch.as_tensor(cfg.model.output_res / side)}
+    step = os.path.join(ckpt, str(step_dirs(ckpt)[0][-1]))
+    for name in ("model.npz", "ema.npz"):
+        model = load_params_npz(os.path.join(step, name),
+                                build_gdrn(cfg, "cpu"))
+        se.aim_heads_(model, batch)
+        save_params_npz(os.path.join(step, name), model)
+
+
+@contextlib.contextmanager
+def pose_step_recorded():
+    """While active, the stage-II CLI's pose step records its config and
+    LPIPS, and the state and device batch of its last call."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    inner = se.make_self_train_step
+    rec = {}
+
+    def make(cfg, model, lpips=None, *a, **kw):
+        step = inner(cfg, model, lpips, *a, **kw)
+        rec.update(cfg=cfg, lpips=lpips)
+
+        def run(state, batch, *a2, **kw2):
+            rec.update(state=state, batch=batch)
+            return step(state, batch, *a2, **kw2)
+        return run
+    se.make_self_train_step = make
+    try:
+        yield rec
+    finally:
+        se.make_self_train_step = inner
+
+
+def run_train_self6dpp(root, ckpt, device):
+    """Phase 21: train_self6dpp at lm_ss (resnest50d, 256² ROI, batch 8,
+    Ranger, LAB 0.2, MS-SSIM, LPIPS from its seeded init, student render
+    at 16 px tiles with K 128), 2 classes, warm-started with --weights from
+    phase 19's checkpoint, the pseudo poses from write_pseudo_dets:
+      a. S2_CLI_ITERS iterations in float32 through the kernels and through
+         the plain versions (TF32 off, cuDNN deterministic, lr 1e-3 with no
+         warm-up): every logged loss within TOL_S2_LOSS, the student's and
+         the teacher's parameters within TOL_S2_PARAMS, the student moved;
+         B1 (soft), B2 and B3 held against their plain versions on the
+         kernel run's last step (phase 5's check_stage2_kernels);
+      b. S2_CLI_TIMED iterations in bf16 as users run it, the launch counts
+         of B1, B2 and B3 (each > 0, one of each per step), ms per
+         iteration and the loader's share;
+      c. SMOKE_ITERS iterations of configs/self6dpp/synthetic_smoke.py (its
+         micro GDRN from the seed): the geo, synsup and pose modes, the
+         DeepIM refiner in the loop and the repj loss on the same CLI.
+    The checkpoint is aimed first (aim_checkpoint)."""
+    from self6dpp_tpu_torch.config import apply_overrides, load_config
+    from self6dpp_tpu_torch.engine.checkpoint import load_params_npz
+    from self6dpp_tpu_torch.engine.gdrn_engine import build_gdrn
+    from self6dpp_tpu_torch.tools import train_self6dpp
+    from self6dpp_tpu_torch.engine.checkpoint import step_dirs
+    cfg = apply_overrides(load_config("configs/self6dpp/lm_ss.py"),
+                          ["model.num_classes=2"])
+    aim_checkpoint(ckpt, root, cfg)
+    dets = write_pseudo_dets(root)
+    head = ["--config", "configs/self6dpp/lm_ss.py", "--weights", ckpt,
+            "--det-file", dets]
+    fp32 = ("dist.compute_dtype=float32", f"solver.total_iters={S2_CLI_ITERS}",
+            "solver.base_lr=1e-3", "solver.warmup_iters=0", "ckpt_period=0")
+    runs = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for impl in ("kernel", "plain"):
+            out = os.path.join(TRAIN_DIR, f"self6dpp_{impl}")
+            with pose_step_recorded() as rec:
+                runs[impl] = run_cli(train_self6dpp.main, head + syn_opts(
+                    root, out, *fp32), device, impl, deterministic=True)
+            if impl == "kernel":
+                k21 = check_stage2_kernels(rec["cfg"], stage2_inputs(
+                    rec["cfg"], rec["state"], rec["batch"], rec["lpips"]),
+                    tie_band=LAB_TIE_BAND)
+                del rec
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    (rk, lk, _, _, _), (rp, _, _, _, _) = runs["kernel"], runs["plain"]
+    mk, mp = (loss_rows(read_metrics(r["metrics"])) for r in (rk, rp))
+    check_finite_losses(read_metrics(rk["metrics"]), "train_self6dpp fp32",
+                        S2_CLI_ITERS)
+    require({"loss_mask_self", "loss_color_ab_obj", "loss_percep_obj",
+             "loss_ms_ssim"} <= set(mk[-1]), "lm_ss loss terms",
+            sorted(mk[-1]))
+    init = load_params_npz(os.path.join(ckpt, str(step_dirs(ckpt)[0][-1]),
+                                        "model.npz"), build_gdrn(cfg, device))
+    init = params_of(init)
+    fp = {"losses_kernel": mk, "losses_plain": mp,
+          "loss_rel_err": max(loss_err(a, b) for a, b in zip(mk, mp)),
+          "student_kernel_vs_plain_max_abs": max_abs_diff(
+              params_of(rk["state"].model), params_of(rp["state"].model)),
+          "teacher_kernel_vs_plain_max_abs": max_abs_diff(
+              params_of(rk["state"].teacher), params_of(rp["state"].teacher)),
+          "student_moved_max_abs": max_abs_diff(
+              params_of(rk["state"].model), init),
+          "launches_kernel_run": lk, "modes": rk["modes"]}
+    require(fp["loss_rel_err"] <= TOL_S2_LOSS, "lm_ss CLI losses", fp)
+    require(fp["student_kernel_vs_plain_max_abs"] <= TOL_S2_PARAMS
+            and fp["teacher_kernel_vs_plain_max_abs"] <= TOL_S2_PARAMS,
+            "lm_ss CLI params", fp)
+    require(fp["student_moved_max_abs"] > S2_MOVED * TOL_S2_PARAMS,
+            "lm_ss CLI: the student did not move", fp)
+
+    out = os.path.join(TRAIN_DIR, "self6dpp_timed")
+    res, launches, by_h, _, wall = run_cli(
+        train_self6dpp.main, head + syn_opts(
+            root, out, f"solver.total_iters={S2_CLI_TIMED}", "ckpt_period=0"),
+        device)
+    rows = read_metrics(res["metrics"])
+    check_finite_losses(rows, "train_self6dpp bf16", S2_CLI_TIMED)
+    s = cfg.model.input_res
+    require(res["modes"] == ["pose"] * S2_CLI_TIMED
+            and by_h["fine_raster_fwd"].get(s) == S2_CLI_TIMED
+            and by_h["fine_raster_bwd"].get(s) == S2_CLI_TIMED
+            and launches["lab_value_grad"] == S2_CLI_TIMED
+            and by_h["fine_raster_fwd"].get(LABEL_RES, 0) > 0,
+            "train_self6dpp launches", launches, by_h)
+    timed = {"config": "self6dpp_lm_ss", "batch": 8,
+             "compute_dtype": "bfloat16", "student_render_res": s,
+             "wall_s": wall,
+             "launches": launches, "launches_by_height": by_h,
+             "last_losses": loss_rows(rows)[-1],
+             **loop_split(res, 8, rows)}
+
+    out = os.path.join(TRAIN_DIR, "self6dpp_smoke")
+    res, sl, sby_h, _, swall = run_cli(train_self6dpp.main, [
+        "--config", "configs/self6dpp/synthetic_smoke.py", "--opts",
+        f"data.dataset_root={root}", f"output_dir={out}", "log_period=1",
+        f"solver.total_iters={SMOKE_ITERS}", f"ckpt_period={SMOKE_ITERS}"],
+        device)
+    rows = read_metrics(res["metrics"])
+    check_finite_losses(rows, "synthetic_smoke", SMOKE_ITERS)
+    require(set(res["modes"]) == {"pose", "geo", "synsup"}
+            and {"loss_repj_miou_1", "loss_PM_R_repj"} <= set(rows[-1]),
+            "synthetic_smoke modes and repj terms", res["modes"],
+            sorted(rows[-1]))
+    smoke = {"modes": res["modes"], "wall_s": swall, "launches": sl,
+             "launches_by_height": sby_h, "last_losses": loss_rows(rows)[-1]}
+    return k21, {"fp32_kernel_vs_plain": fp, "timed": timed,
+                 "synthetic_smoke": smoke}
+
+
+def train_kernel_lines(k21, timed, b1_label, label_launches):
+    """The `kernels` entries of the training path: B1 at the train labels'
+    cache (phase 19), and B1, B2 and B3 at lm_ss's step (phase 21, held on
+    the fp32 run's inputs; launches of the bf16 run at the student
+    render's height)."""
+    s = timed["student_render_res"]
+    launches = {"fine_raster_fwd": timed["launches_by_height"][
+                    "fine_raster_fwd"][s],
+                "fine_raster_bwd": timed["launches_by_height"][
+                    "fine_raster_bwd"][s],
+                "lab_value_grad": timed["launches"]["lab_value_grad"]}
+    rows = [b1_row("fine_raster_fwd[train_label_cache]", b1_label,
+                   label_launches)]
+    for name, src, replaces, key, count, err in (
+            ("fine_raster_fwd[lm_ss]", "fine_raster_fwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:420", "B1",
+             "fine_raster_fwd", max(k21["B1"]["max_abs_err"].values())),
+            ("fine_raster_bwd[lm_ss]", "fine_raster_bwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:459", "B2",
+             "fine_raster_bwd", k21["B2"]["loss"]["rel_err"]
+             * k21["B2"]["loss"]["max_abs"]),
+            ("lab_value_grad[lm_ss]", "lab_value_grad.cu",
+             "self6dpp_tpu/ops/lab_pallas.py:171", "B3", "lab_value_grad",
+             k21["B3"]["scaled_max_abs_err"])):
+        d = k21[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"self6dpp_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[count], "max_abs_err": err, "ms": d["ms"],
+            "graph_ms": d["graph_ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+            "library_ms": None})
+    return rows
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2563,7 +3017,9 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(record_path: str = "") -> int:
+    """Runs every phase; record_path, when given, also gets the `record`
+    line's JSON (the line is longer than a terminal's tail keeps)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2765,6 +3221,23 @@ def main() -> int:
     print(f"LM evaluator: {json.dumps(lm_eval)}", flush=True)
     print(f"VSD B1 vs plain: {json.dumps(b1_vsd)}", flush=True)
     clock["lm_evaluator_phase18b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt19, train_label_inputs, gdrn_train = run_train_gdrn(syn_root, device)
+    b1_train_label = b1_at(train_label_inputs, "train label cache B1")
+    del train_label_inputs
+    print(f"train_gdrn: {json.dumps(gdrn_train)}", flush=True)
+    print(f"train label cache B1 vs plain: {json.dumps(b1_train_label)}",
+          flush=True)
+    clock["train_gdrn_phase19_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deepim_train = run_train_deepim(syn_root, device)
+    print(f"train_deepim: {json.dumps(deepim_train)}", flush=True)
+    clock["train_deepim_phase20_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k21, self_train = run_train_self6dpp(syn_root, ckpt19, device)
+    print(f"train_self6dpp: {json.dumps(self_train)}", flush=True)
+    print(f"lm_ss kernels vs plain: {json.dumps(k21)}", flush=True)
+    clock["train_self6dpp_phase21_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -2781,11 +3254,19 @@ def main() -> int:
               "deepim_train_card_vs_cpu": di_cpu,
               "synthetic_set": syn, "png_decode": png, "test_gdrn": gdrn_test,
               "label_cache_b1": b1_label, "test_deepim": deepim_test,
-              "lm_evaluator": lm_eval, "vsd_b1": b1_vsd, "clock": clock,
+              "lm_evaluator": lm_eval, "vsd_b1": b1_vsd,
+              "train_gdrn": gdrn_train, "train_label_cache_b1": b1_train_label,
+              "train_deepim": deepim_train, "train_self6dpp": self_train,
+              "lm_ss_kernels": k21, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
     print("record " + json.dumps(record))
+    if record_path:
+        os.makedirs(os.path.dirname(os.path.abspath(record_path)),
+                    exist_ok=True)
+        with open(record_path, "w") as f:
+            json.dump(record, f)
     kernels = [kernel] + stage2_kernel_lines(k5, s2_launches, k8,
                                              probe_launches)
     kernels.append(normal_render_kernel_line(nr, s3_steps))
@@ -2804,6 +3285,9 @@ def main() -> int:
                           gdrn_test["b1_launches_by_height"][LABEL_RES]))
     kernels.append(b1_row("fine_raster_fwd[vsd]", b1_vsd,
                           lm_eval["b1_launches_by_height"][FRAME_HW[0]]))
+    kernels += train_kernel_lines(
+        k21, self_train["timed"], b1_train_label,
+        gdrn_train["b1_launches_by_height"][LABEL_RES])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
@@ -2850,6 +3334,21 @@ def main() -> int:
                                        "label_render_ms", "evaluate_s",
                                        "wall_s", "b1_launches_by_height")},
                                "lm_evaluate_s": lm_eval["evaluate_s"],
+                               "train_gdrn": {
+                                   k: gdrn_train[k] for k in (
+                                       "config", "batch", "ms_per_iter",
+                                       "step_ms", "loader_wait_ms",
+                                       "images_per_s")},
+                               "train_deepim": {
+                                   k: deepim_train[k] for k in (
+                                       "config", "batch", "ms_per_iter",
+                                       "step_ms", "loader_wait_ms",
+                                       "images_per_s")},
+                               "train_self6dpp": {
+                                   k: self_train["timed"][k] for k in (
+                                       "config", "batch", "ms_per_iter",
+                                       "step_ms", "loader_wait_ms",
+                                       "images_per_s", "launches")},
                                "png_decode_ms_lm_frame": {
                                    k: png[k]["ms"] for k in (
                                        "rgb_paeth", "rgb", "mask",
@@ -2864,4 +3363,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                             "CUDA card")
+    ap.add_argument("--record", default="",
+                    help="also write the record's JSON to this file")
+    sys.exit(main(ap.parse_args().record))

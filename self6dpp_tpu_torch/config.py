@@ -285,6 +285,7 @@ class TestConfig:
 @dataclass(frozen=True)
 class SelfSupConfig:
     """Stage-II self-supervised loss weights."""
+    enabled: bool = False           # marks a stage-II config; read nowhere
     mask_lw: float = 1.0
     mask_loss_type: str = "RW_BCE"  # RW_BCE | dice | BCE
     mask_edge_reweight: bool = True
@@ -303,6 +304,7 @@ class SelfSupConfig:
     norm_lw: float = 0.0
     pseudo_pm_lw: float = 10.0
     pseudo_trans_lw: float = 0.0
+    ema_teacher: bool = True        # read nowhere, as in the JAX package
     ema_decay: float = 0.999
     teacher_update_freq: int = 1    # epochs between EMA teacher refreshes
     geo_mode_ratio: float = 0.0     # share of iterations in the geo mode
@@ -315,8 +317,11 @@ class SelfSupConfig:
     geo_aug_crop: float = 0.1
     pseudo_pose_type: str = "pose_refine"   # pose_refine | pose_est | teacher
     # the DeepIM refiner refines the pseudo pose inside the step (the step
-    # takes the refiner as an argument)
+    # takes the refiner as an argument; train_self6dpp builds it from
+    # refiner_config with the weights of refiner_weights, a flat .npz)
     refine_with_deepim: bool = False
+    refiner_config: str = ""
+    refiner_weights: str = ""
     # RepjRefiner multi-view weak supervision of the student's pose
     # (models/repj_refiner.py::repj_weak_loss) and its term weights
     repj_refine: bool = False
@@ -341,7 +346,10 @@ class Config:
     self_sup: SelfSupConfig = field(default_factory=SelfSupConfig)
     dist: DistConfig = field(default_factory=DistConfig)
     ckpt_period: int = 5000
+    ckpt_max_to_keep: int = 2
     log_period: int = 100
+    tensorboard: bool = False       # add a TensorBoard scalar writer
+    vis_period: int = 0             # iterations between image grids (0: off)
 
 
 def _coerce(val: str, target_type):
@@ -477,6 +485,64 @@ def deepim_synthetic_smoke() -> Config:
         ckpt_period=15, log_period=5)
 
 
+def self6dpp_lm_ss() -> Config:
+    """Stage II for LINEMOD (configs/self6dpp/lm_ss.py, on gdrn_lm_base):
+    RW_BCE mask with edge weights, LPIPS 0.15, MS-SSIM 1, LAB 0.2, pseudo
+    PM 10; Ranger at 2e-5, cosine anneal from 0.72 of 3000 iterations, 8
+    images per batch, clip 35; EMA teacher at 0.999; pose mode only."""
+    return dataclasses.replace(
+        gdrn_lm_base(),
+        exp_name="self6dpp_lm_ss",
+        solver=SolverConfig(
+            optimizer="ranger", base_lr=2e-5, anneal_method="cosine",
+            anneal_point=0.72, total_iters=3000, ims_per_batch=8,
+            reference_bs=8, grad_clip_norm=35.0, ema_decay=0.999),
+        self_sup=SelfSupConfig(
+            enabled=True, mask_lw=1.0, mask_loss_type="RW_BCE",
+            mask_edge_reweight=True, perceptual_lw=0.15, ms_ssim_lw=1.0,
+            lab_lw=0.2, depth_chamfer_lw=0.0, chamfer_dist_thr=0.05,
+            pseudo_pm_lw=10.0, pseudo_trans_lw=0.0, ema_teacher=True,
+            ema_decay=0.999, geo_mode_ratio=0.0))
+
+
+def self6dpp_synthetic_smoke() -> Config:
+    """Stage II on the synthetic BOP set (configs/self6dpp/synthetic_smoke.py,
+    on gdrn_synthetic_smoke): adam at 5e-5 for 20 iterations, 4 images per
+    batch; the TRAIN2 interleave at 0.3, the geo mode at 0.3, the EMA
+    teacher refreshed every epoch, the DeepIM refiner of
+    deepim_synthetic_refiner in the loop and the RepjRefiner loss at 32²."""
+    b = gdrn_synthetic_smoke()
+    return dataclasses.replace(
+        b,
+        exp_name="self6dpp_synthetic_smoke",
+        solver=SolverConfig(optimizer="adam", base_lr=5e-5, total_iters=20,
+                            warmup_iters=0, ims_per_batch=4, reference_bs=4),
+        data=dataclasses.replace(b.data, train2_datasets=("synthetic",),
+                                 train2_ratio=0.3),
+        self_sup=SelfSupConfig(
+            enabled=True, mask_lw=1.0, ms_ssim_lw=1.0, perceptual_lw=0.1,
+            pseudo_pm_lw=10.0, geo_mode_ratio=0.3, teacher_update_freq=1,
+            refine_with_deepim=True,
+            refiner_config="configs/deepim/synthetic_refiner.py",
+            repj_refine=True, repj_render_res=32),
+        ckpt_period=20, log_period=5)
+
+
+def deepim_synthetic_refiner() -> Config:
+    """The in-loop refiner of self6dpp_synthetic_smoke
+    (configs/deepim/synthetic_refiner.py): 64² zoom, 8 input channels with
+    the masks, 2 train/test iterations, no flow or mask head; renderer
+    tiles of 16 px with K 64."""
+    return Config(
+        exp_name="deepim_synthetic_refiner",
+        output_dir="/tmp/smoke_out",
+        deepim=DeepIMConfig(
+            num_classes=2, input_h=64, input_w=64, in_channels=8,
+            n_iter_train=2, n_iter_test=2, with_flow=False, flow_lw=0.0,
+            with_mask_head=False),
+        renderer=RendererConfig(tile_px=16, faces_per_tile=64))
+
+
 # the repo's config files (which import the JAX package) -> the port's
 # functions that build the same Config
 CONFIGS = {
@@ -484,6 +550,9 @@ CONFIGS = {
     "configs/gdrn/synthetic_smoke.py": gdrn_synthetic_smoke,
     "configs/deepim/lm_flownet.py": lm_flownet,
     "configs/deepim/synthetic_smoke.py": deepim_synthetic_smoke,
+    "configs/deepim/synthetic_refiner.py": deepim_synthetic_refiner,
+    "configs/self6dpp/lm_ss.py": self6dpp_lm_ss,
+    "configs/self6dpp/synthetic_smoke.py": self6dpp_synthetic_smoke,
 }
 
 
@@ -519,7 +588,7 @@ def stage2_pose_flagship() -> Config:
                             reference_bs=24),
         renderer=RendererConfig(tile_px=32, faces_per_tile=128),
         self_sup=SelfSupConfig(
-            mask_lw=1.0, ms_ssim_lw=1.0, lab_lw=0.2,
+            enabled=True, mask_lw=1.0, ms_ssim_lw=1.0, lab_lw=0.2,
             lab_impl="pallas", lab_no_l=True, depth_chamfer_lw=1.0,
             perceptual_lw=0.15, pseudo_pm_lw=10.0, pseudo_trans_lw=1.0),
     )

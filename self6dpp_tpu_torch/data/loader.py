@@ -1,6 +1,5 @@
-"""GDRN batches from BOP records: the eval mode of the JAX package's
-self6dpp_tpu/data/loader.py (compute_vf_np[_batch], ObjectModels,
-GDRNDataset(train=False), _prefetch_iterator).
+"""GDRN batches from BOP records (port of self6dpp_tpu/data/loader.py:
+compute_vf_np[_batch], ObjectModels, GDRNDataset, _prefetch_iterator).
 
 Per sample on the host (numpy, a thread pool): read the image and masks
 (data/image_io.py), crop the detection box's square to input_res and the
@@ -15,8 +14,14 @@ package's does, so that both warp the same values. The JAX package pins
 these renders to the host CPU and its XLA rasterizer; here they run where
 the dataset's `device` is, with its `impl`.
 
-The training mode (augmentation, background replacement, samplers)
-belongs to the training slice: GDRNDataset(train=True) raises.
+The training mode (train=True) adds, per sample and in the JAX
+package's order of draws: background replacement (when bg_images are
+given), colour augmentation, the DZI box jitter and depth noise (data/aug.py);
+its regions are assigned inside m_obj * m_visib; batches(infinite=True)
+draws the instances from cfg.data.sampler (data/samplers.py). Without a
+thread pool every draw comes from the dataset's generator; with one, each
+sample gets a child generator spawned from the dataset's seed sequence, as
+the JAX package spawns them.
 """
 
 from __future__ import annotations
@@ -33,12 +38,16 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..ops.fps import farthest_point_sampling, xyz_to_region_batch
-from .aug import aug_bbox_dzi, crop_resize_by_warp_affine, get_2d_coord, \
-    warp_affine
+from .aug import add_noise_depth, aug_bbox_dzi, color_aug, \
+    crop_resize_by_warp_affine, get_2d_coord, replace_bg, warp_affine
 from .bop import Record
 from .image_io import imread
 from .meshes import load_ply, pad_mesh
 from .ref import DatasetMeta, sym_rotations_from_info
+from .samplers import (inference_sampler, infinite_subset_random_sampler,
+                       repeat_factor_sampler,
+                       repeat_factors_from_category_frequency,
+                       training_sampler)
 
 
 def compute_vf_np(fps_points: np.ndarray, K: np.ndarray, R: np.ndarray,
@@ -194,28 +203,29 @@ class ObjectModels:
 
 
 class GDRNDataset:
-    """Fixed-shape GDRN eval batches from BOP records.
+    """Fixed-shape GDRN batches from BOP records, augmented and sampled
+    when train.
 
     device: where the label renders run (CUDA by default); impl: their
-    fine stage, 'kernel' (B1 on the card) or 'plain'. `timings` collects,
-    per assembled batch, the host seconds of its samples (read, crop,
-    labels) and of its label render (included in the former)."""
+    fine stage, 'kernel' (B1 on the card) or 'plain'. bg_images: float32
+    (H, W, 3) backgrounds for the replacement at cfg.data.bg_replace_prob
+    (train only). `timings` collects, per assembled batch, the host
+    seconds of its samples (read, augmentation, crop, labels) and of its
+    label render (included in the former)."""
 
     def __init__(self, cfg: Config, records: list[Record],
                  models: ObjectModels, meta: DatasetMeta,
                  train: bool = False, seed: int = 0, device=None,
-                 impl: str = "kernel"):
-        if train:
-            raise NotImplementedError(
-                "the training mode of the loader (augmentation, background "
-                "replacement, samplers) belongs to the training slice "
-                "(train_gdrn.sh end to end); the port loads eval batches")
+                 impl: str = "kernel",
+                 bg_images: list[np.ndarray] | None = None):
         if impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl: {impl!r}")
         self.cfg = cfg
         self.records = records
         self.models = models
         self.meta = meta
+        self.train = train
+        self.bg_images = bg_images or []
         self.device = resolve_device(device)
         self.impl = impl
         self.rng = np.random.default_rng(seed)
@@ -226,7 +236,7 @@ class GDRNDataset:
         self._coord2d_cache: dict[tuple, np.ndarray] = {}
         # VSD needs the observed full-frame depth for its visibility masks;
         # it stays on the host (evaluator.HOST_ONLY_KEYS)
-        self.emit_full_depth = "vsd" in cfg.test.error_types
+        self.emit_full_depth = (not train) and "vsd" in cfg.test.error_types
         # per-sample child generators for the thread pool, spawned serially
         # in make_samples as the JAX package spawns them
         self._seed_seq = np.random.SeedSequence(seed + 0x5EED)
@@ -259,8 +269,9 @@ class GDRNDataset:
     def _sample_host(self, ri: int, ii: int,
                      rng: np.random.Generator | None = None
                      ) -> dict[str, np.ndarray]:
-        """The host part of one sample (read, crops, SITE targets); the
-        rendered labels are filled per batch by _finish_samples."""
+        """The host part of one sample (read, augmentation when train,
+        crops, SITE targets); the rendered labels are filled per batch by
+        _finish_samples."""
         cfg = self.cfg
         rng = rng if rng is not None else self.rng
         rec = self.records[ri]
@@ -276,8 +287,17 @@ class GDRNDataset:
         mask_visib = self._load_mask(inst.mask_visib_path, img.shape)
         mask_full = self._load_mask(inst.mask_full_path, img.shape)
 
+        if self.train and self.bg_images and \
+                rng.random() < cfg.data.bg_replace_prob:
+            bg = self.bg_images[rng.integers(len(self.bg_images))]
+            img = replace_bg(img, mask_full, bg,
+                             truncate_fg=cfg.data.truncate_fg, rng=rng)
+        if self.train and cfg.data.color_aug_prob > 0:
+            img = color_aug(img, rng, cfg.data.color_aug_prob)
+
         bbox = inst.bbox_visib
-        dzi = type(cfg.data.dzi)(type="none", pad_scale=cfg.data.dzi.pad_scale)
+        dzi = cfg.data.dzi if self.train else \
+            type(cfg.data.dzi)(type="none", pad_scale=cfg.data.dzi.pad_scale)
         center, scale = aug_bbox_dzi(dzi, bbox, im_h, im_w, rng)
 
         roi_img = crop_resize_by_warp_affine(img, center, scale, s_in)
@@ -299,6 +319,10 @@ class GDRNDataset:
             depth = self._load_depth(rec)
             if depth is None:
                 depth = np.zeros(img.shape[:2], np.float32)
+            if self.train and cfg.data.depth_aug_prob > 0 and \
+                    rng.random() < cfg.data.depth_aug_prob:
+                depth = add_noise_depth(depth, rng,
+                                        level=cfg.data.depth_aug_level)
             roi_depth = crop_resize_by_warp_affine(
                 depth, center, scale, s_in, interpolation="nearest")
 
@@ -474,7 +498,8 @@ class GDRNDataset:
         xyz_bin = np.clip((xyz_norm * gh.xyz_bin).astype(np.int32), 0,
                           gh.xyz_bin - 1)
         region = xyz_to_region_batch(
-            xyz_obj, self.models.fps_points[cls], m_obj).astype(np.int32)
+            xyz_obj, self.models.fps_points[cls],
+            m_obj * m_visib if self.train else m_obj).astype(np.int32)
         trunc = (m_visib * m_obj).astype(np.float32)
         if gh.with_vf:
             f = gh.num_vf_points
@@ -515,18 +540,36 @@ class GDRNDataset:
         return self._finish_samples(partials, keys)
 
     # ------------------------------------------------------------------
+    def _index_sampler(self, n: int) -> Iterator[int]:
+        """The training index stream of cfg.data.sampler ('training',
+        'repeat_factor' by object frequency, 'inf_subset'), seeded by one
+        draw of the dataset's generator."""
+        name = self.cfg.data.sampler
+        seed = int(self.rng.integers(2 ** 31))
+        if name == "training":
+            return training_sampler(n, seed=seed)
+        if name == "repeat_factor":
+            cats = np.asarray([self.records[ri].instances[ii].obj_id
+                               for ri, ii in self.index])
+            rf = repeat_factors_from_category_frequency(
+                cats, self.cfg.data.repeat_thresh)
+            return repeat_factor_sampler(rf, seed=seed)
+        if name == "inf_subset":
+            return infinite_subset_random_sampler(
+                n, self.cfg.data.subset_ratio, seed=seed)
+        raise ValueError(f"unknown sampler: {name}")
+
     def batches(self, batch_size: int, infinite: bool | None = None,
                 num_workers: int | None = None, prefetch: int | None = None
                 ) -> Iterator[dict[str, np.ndarray]]:
-        """One sequential epoch, the last batch padded with copies of its
+        """Sampled batches without end (infinite, the default for train),
+        or one sequential epoch with the last batch padded by copies of its
         last sample and flagged by `_valid` (1 real, 0 padding).
 
         num_workers > 0 runs the per-sample host work on a thread pool and
         builds batches ahead on a background thread (`prefetch` of them);
         the label render then runs on that thread too."""
-        if infinite:
-            raise NotImplementedError(
-                "sampled (infinite) batches belong to the training slice")
+        infinite = self.train if infinite is None else infinite
         num_workers = (self.cfg.data.num_workers if num_workers is None
                        else num_workers)
         prefetch = (self.cfg.data.prefetch if prefetch is None else prefetch)
@@ -537,21 +580,30 @@ class GDRNDataset:
             from concurrent.futures import ThreadPoolExecutor
             pool = ThreadPoolExecutor(max_workers=num_workers)
 
+        def timed(keys: list[tuple[int, int]], pad: int = 0):
+            t0, r0 = time.perf_counter(), self._render_s
+            samples = self.make_samples(keys, pool=pool)
+            batch = self._collate(samples + [samples[-1]] * pad)
+            self.timings.append({"host_s": time.perf_counter() - t0,
+                                 "label_render_s": self._render_s - r0})
+            return batch
+
         def gen():
             try:
-                for i in range(0, n, batch_size):
-                    t0, r0 = time.perf_counter(), self._render_s
-                    keys = [self.index[j]
-                            for j in range(i, min(i + batch_size, n))]
-                    samples = self.make_samples(keys, pool=pool)
-                    pad = batch_size - len(samples)
-                    batch = self._collate(samples + [samples[-1]] * pad)
-                    batch["_valid"] = np.array(
-                        [1] * len(samples) + [0] * pad, np.int32)
-                    self.timings.append({
-                        "host_s": time.perf_counter() - t0,
-                        "label_render_s": self._render_s - r0})
-                    yield batch
+                if infinite:
+                    stream = self._index_sampler(n)
+                    while True:
+                        yield timed([self.index[next(stream)]
+                                     for _ in range(batch_size)])
+                else:
+                    order = list(inference_sampler(n))
+                    for i in range(0, n, batch_size):
+                        keys = [self.index[j] for j in order[i:i + batch_size]]
+                        pad = batch_size - len(keys)
+                        batch = timed(keys, pad)
+                        batch["_valid"] = np.array(
+                            [1] * len(keys) + [0] * pad, np.int32)
+                        yield batch
             finally:
                 if pool is not None:
                     pool.shutdown(wait=False)

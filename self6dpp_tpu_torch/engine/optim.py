@@ -156,13 +156,21 @@ class Solver(torch.optim.Optimizer):
         self.threshold = threshold
         self.sync_period = sync_period
         self.slow_step_size = slow_step_size
-        self.count = 0
-        self.mini_step = 0
         ps = self._params()
         self.kinds = list(kinds) if kinds is not None else [None] * len(ps)
         if len(self.kinds) != len(ps):
             raise ValueError(f"{len(self.kinds)} kinds for {len(ps)} params")
-        for p in ps:
+        self.reset()
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """A fresh state at the parameters' current values: no update
+        counted, zero moments, the Lookahead's slow weights (and MADGRAD's
+        x0) copies of the parameters."""
+        core = self.core
+        self.count = 0
+        self.mini_step = 0
+        for p in self._params():
             st = self.state[p]
             if core in _MOMENTS:
                 st["mu"] = torch.zeros_like(p)
@@ -180,6 +188,17 @@ class Solver(torch.optim.Optimizer):
 
     def _params(self) -> list[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
+
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        sd["counts"] = {"count": self.count, "mini_step": self.mini_step}
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        sd = dict(state_dict)
+        counts = sd.pop("counts")
+        super().load_state_dict(sd)
+        self.count, self.mini_step = counts["count"], counts["mini_step"]
 
     @torch.no_grad()
     def step(self, closure=None):

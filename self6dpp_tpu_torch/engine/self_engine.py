@@ -198,7 +198,8 @@ def repj_terms(cfg: Config, batch: dict[str, Tensor], out: dict[str, Tensor],
     """The RepjRefiner weak loss (models/repj_refiner.py::repj_weak_loss)
     on the student's pose, with its visible (and, from a second mask
     channel, full) mask probabilities, the ROIs' class meshes and full-frame
-    intrinsics, at the configured weights and render size."""
+    intrinsics, at the configured weights and render size. A batch's
+    "repj_best" (1,) pins the best view (repj_refiner.repj_inputs)."""
     ss = cfg.self_sup
     mask_type = cfg.model.loss.mask_loss_type
     logits = out["mask_logits"]
@@ -215,7 +216,7 @@ def repj_terms(cfg: Config, batch: dict[str, Tensor], out: dict[str, Tensor],
         full_hw=(cfg.renderer.height, cfg.renderer.width),
         w_iou2d3d=ss.repj_iou2d3d_lw, w_pm=ss.repj_pm_lw,
         w_miou=ss.repj_miou_lw, w_msssim=ss.repj_msssim_lw,
-        raster_kw={"impl": impl})
+        raster_kw={"impl": impl}, best=batch.get("repj_best"))
 
 
 def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],

@@ -146,26 +146,39 @@ def _compose_rt(Ra: Tensor, ta: Tensor, Rb: Tensor, tb: Tensor
             torch.einsum("bij,bj->bi", Ra, tb) + ta)
 
 
-def repj_inputs(rot: Tensor, trans: Tensor, vis_prob: Tensor,
-                full_prob: Tensor, gt_rot: Tensor, gt_trans: Tensor,
-                verts: Tensor, faces: Tensor, colors: Tensor, K: Tensor,
-                render_res: int = 64, full_hw: tuple[int, int] = (480, 640)):
-    """The best view and the poses repj_weak_loss compares: (best (1,),
-    anchor (infR, inft, inf_verts, inf_faces, inf_colors, Ks_inf),
-    reprojected (repR, rept, Ks_rep)). The best view has the largest cosine between
-    the vis and full mask probabilities over the hard full mask (the
-    first, at a tie); the anchor is its detached pose and mesh in every
-    slot; T_best inv(T_i) from the GT poses (used only as relative camera
-    extrinsics) carries each view's pose into the best view's camera; both
-    use K scaled from full_hw to render_res."""
-    B = rot.shape[0]
+def view_cosines(vis_prob: Tensor, full_prob: Tensor) -> Tensor:
+    """(B,) cosine between each view's vis and full mask probabilities
+    (B,h,w) over its hard full mask (reprojection_refiner.py:134-146)."""
+    B = vis_prob.shape[0]
     f = full_prob.reshape(B, -1)
     v = vis_prob.reshape(B, -1)
     h = (f > 0.5).to(f.dtype)
     dot = (f * v * h).sum(-1)
     nrm = torch.sqrt((f * f * h).sum(-1).clamp_min(1e-12)) * \
         torch.sqrt((v * v * h).sum(-1).clamp_min(1e-12))
-    best = torch.argmax(dot / nrm.clamp_min(1e-12)).reshape(1)
+    return dot / nrm.clamp_min(1e-12)
+
+
+def repj_inputs(rot: Tensor, trans: Tensor, vis_prob: Tensor,
+                full_prob: Tensor, gt_rot: Tensor, gt_trans: Tensor,
+                verts: Tensor, faces: Tensor, colors: Tensor, K: Tensor,
+                render_res: int = 64, full_hw: tuple[int, int] = (480, 640),
+                best: Tensor | None = None):
+    """The best view and the poses repj_weak_loss compares: (best (1,),
+    anchor (infR, inft, inf_verts, inf_faces, inf_colors, Ks_inf),
+    reprojected (repR, rept, Ks_rep)). The best view has the largest
+    cosine between the vis and full mask probabilities over the hard full
+    mask (the first, at a tie), unless `best` (1,) names it. With one mask
+    channel the full mask is the visible one, every cosine is 1 up to
+    float32 rounding, and the summation order decides the view
+    (view_cosines); `best` pins that choice, e.g. to another
+    implementation's. The anchor is its detached pose and mesh in every
+    slot; T_best inv(T_i) from the GT poses (used only as relative camera
+    extrinsics) carries each view's pose into the best view's camera; both
+    use K scaled from full_hw to render_res."""
+    if best is None:
+        best = torch.argmax(view_cosines(vis_prob, full_prob)).reshape(1)
+    best = best.to(rot.device, torch.long)
 
     def take(x):            # on the device: no wait for the index
         return x.detach().index_select(0, best).expand(x.shape)
@@ -189,7 +202,7 @@ def repj_weak_loss(
     render_res: int = 64, full_hw: tuple[int, int] = (480, 640),
     scales: tuple[int, ...] = (1, 2, 4), w_iou2d3d: float = 0.1,
     w_pm: float = 10.0, w_miou: float = 1.0, w_msssim: float = 1.0,
-    raster_kw: dict | None = None,
+    raster_kw: dict | None = None, best: Tensor | None = None,
 ) -> dict[str, Tensor]:
     """Multi-view reprojection consistency (RepjRefiner.forward,
     reprojection_refiner.py:85-310): the student's poses rot (B,3,3), trans
@@ -204,13 +217,14 @@ def repj_weak_loss(
     vis_prob, full_prob (B,h,w); gt_rot, gt_trans the scene poses; verts
     (B,V,3), faces (B,F,3), colors (B,V,3); K (B,3,3) full-frame
     intrinsics; points (B,N,3) PM points; extents (B,3). raster_kw
-    overrides RASTER_KW (e.g. impl='plain')."""
+    overrides RASTER_KW (e.g. impl='plain'); best (1,) pins the best view
+    (repj_inputs)."""
     rkw = dict(RASTER_KW, **(raster_kw or {}))
     B = rot.shape[0]
     _, (infR, inft, inf_verts, inf_faces, inf_colors, Ks_inf), \
         (repR, rept, Ks_rep) = repj_inputs(
             rot, trans, vis_prob, full_prob, gt_rot, gt_trans, verts, faces,
-            colors, K, render_res, full_hw)
+            colors, K, render_res, full_hw, best)
 
     loss: dict[str, Tensor] = {}
     for s in scales:

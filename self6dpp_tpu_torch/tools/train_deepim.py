@@ -1,22 +1,30 @@
-"""DeepIM test CLI (port of tools/train_deepim.py --eval-only, what
-test_deepim.sh runs): each test instance's initial pose is its ground
-truth plus noise (15 deg rotation, (1, 1, 5) cm translation std, drawn
-from default_rng(cfg.seed) in the JAX CLI's order), refined n_iter_test
-times (engine/deepim_engine.py: a render through kernel B1 per iteration
-on the card with impl="kernel"); prints the recall tables as markdown.
+"""DeepIM train/test CLI (port of tools/train_deepim.py, what
+train_deepim.sh and test_deepim.sh run). Each instance's initial pose is
+its ground truth plus noise (15 deg rotation, (1, 1, 5) cm translation
+std, drawn from default_rng(cfg.seed) in the JAX CLI's order); every
+refine iteration renders through kernel B1 on the card with
+impl="kernel" (engine/deepim_engine.py).
+
+Training: the train split through the train-mode loader, the DeepIM train
+step (one per refine count of the n_iter_train_warm_iters ramp) and the
+trainer, with the test split evaluated every test.eval_period iterations
+from a fixed perturbation. --eval-only: n_iter_test refine iterations on
+the test split; prints the recall tables as markdown.
 
     python -m self6dpp_tpu_torch.tools.train_deepim \\
-        --config configs/deepim/lm_flownet.py --eval-only \\
+        --config configs/deepim/lm_flownet.py [--eval-only] [--resume] \\
         [--init-npz WEIGHTS.npz] [--opts k=v ...] [--device cpu]
 
-Weights: --init-npz (the JAX DeepIM's flat .npz) over the seeded init; an
-orbax checkpoint in <output_dir>/<exp_name>/ckpt raises (the JAX CLI
-resumes from it). Training belongs to the training slice and raises.
+Weights: --init-npz (the JAX DeepIM's flat .npz) over the seeded init;
+without it, --eval-only takes the latest step of the checkpoint directory
+when there is one. An orbax checkpoint in <output_dir>/<exp_name>/ckpt
+raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -27,6 +35,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--init-npz", default="",
                    help="flat .npz of JAX-layout DeepIM weights loaded over "
                         "the seeded init (strict=False)")
@@ -69,33 +78,103 @@ def deepim_inputs(batch: dict, models, device) -> dict[str, torch.Tensor]:
     return db
 
 
+def eval_fn_of(cfg, model, dev, impl: str):
+    """eval_fn(state) -> tables for the trainer: the test split from the
+    fixed perturbation (default_rng(0) for every batch, as the JAX CLI
+    draws it), n_iter_test refine iterations, the pose evaluator."""
+    from ..engine import deepim_engine as de
+    from ..engine.evaluator import PoseEvaluator, run_inference
+    from .train_gdrn import build_dataset
+    ds_t, models_t, meta_t = build_dataset(cfg, train=False, device=dev,
+                                           impl=impl)
+    estep = de.make_eval_step(cfg, model, device=dev,
+                              raster_kw={"impl": impl})
+
+    def eval_fn(st):
+        ev = PoseEvaluator(models_t, meta_t, device=dev, impl=impl)
+        batches = (noisy_init(raw, np.random.default_rng(0))
+                   for raw in ds_t.batches(cfg.solver.ims_per_batch))
+        run_inference(estep, batches, ev,
+                      to_device_fn=lambda b: deepim_inputs(b, models_t, dev),
+                      device=dev)
+        return ev.evaluate()
+    return eval_fn
+
+
+def train(args, cfg, dev, impl: str) -> dict:
+    """The training run of main: returns {'state', 'timings', 'metrics'}
+    (as tools/train_gdrn.train)."""
+    from ..engine import deepim_engine as de
+    from ..engine.checkpoint import check_no_orbax_steps, load_params_npz
+    from ..engine.trainer import do_train
+    from .train_gdrn import build_dataset, ckpt_dir, loop_timings
+
+    check_no_orbax_steps(ckpt_dir(cfg))
+    ds, models, _ = build_dataset(cfg, train=True, device=dev, impl=impl)
+    rng = np.random.default_rng(cfg.seed)
+    batches = (noisy_init(raw, rng)
+               for raw in ds.batches(cfg.solver.ims_per_batch))
+    # the JAX CLI takes its first batch to initialise the state
+    next(batches)
+    model = de.build_deepim(cfg, dev, train=True,
+                            generator=torch.Generator().manual_seed(cfg.seed))
+    if args.init_npz:
+        load_params_npz(args.init_npz, model, strict=False)
+    state = de.init_state(cfg, model)
+    raster_kw = {"impl": impl}
+    if cfg.deepim.n_iter_train_warm_iters > 0:
+        # the refine-count ramp: one step per count, built at first use
+        steps: dict[int, object] = {}
+
+        def step(state, batch):
+            n = de.warm_n_iter(cfg.deepim, state.step)
+            if n not in steps:
+                steps[n] = de.make_train_step(cfg, model, n_iter=n,
+                                              device=dev, raster_kw=raster_kw)
+            return steps[n](state, batch)
+    else:
+        step = de.make_train_step(cfg, model, device=dev,
+                                  raster_kw=raster_kw)
+    eval_fn = eval_fn_of(cfg, model, dev, impl) \
+        if cfg.test.eval_period > 0 else None
+    timings: list[dict] = []
+    state = do_train(cfg, state, step, batches,
+                     lambda b: deepim_inputs(b, models, dev),
+                     eval_fn=eval_fn, resume=args.resume, timings=timings)
+    return {"state": state, "timings": loop_timings(ds, timings),
+            "metrics": os.path.join(cfg.output_dir, cfg.exp_name,
+                                    "metrics.json")}
+
+
 def main(argv=None, device=None, impl: str = "kernel") -> dict:
-    """Returns {'tables', 'results', 'timings' (per batch: the loader's
-    host and label-render seconds, the wait and step seconds of
-    run_inference), 'evaluate_s'}. device: the default of --device; impl:
-    the fine stage of every render ('kernel' or 'plain')."""
+    """Training returns train()'s dict; --eval-only returns {'tables',
+    'results', 'timings' (per batch: the loader's host and label-render
+    seconds, the wait and step seconds of run_inference), 'evaluate_s'}.
+    device: the default of --device; impl: the fine stage of every render
+    ('kernel' or 'plain')."""
     from .. import resolve_device
     from ..config import apply_overrides, load_config
     from ..engine import deepim_engine as de
     from ..engine.checkpoint import load_params_npz
     from ..engine.evaluator import (PoseEvaluator, run_inference,
                                     table_to_markdown)
-    from .train_gdrn import build_dataset, check_no_orbax_steps
+    from ..engine.writers import setup_logger
+    from .train_gdrn import build_dataset, load_latest_weights
 
     args = parse_args(argv)
-    if not args.eval_only:
-        raise NotImplementedError(
-            "DeepIM training belongs to the training slice (train_deepim.sh "
-            "end to end); run with --eval-only")
     dev = resolve_device(args.device or device)
     cfg = apply_overrides(load_config(args.config), args.opts)
+    setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
+    if not args.eval_only:
+        return train(args, cfg, dev, impl)
 
     ds, models, meta = build_dataset(cfg, train=False, device=dev, impl=impl)
     model = de.build_deepim(cfg, dev,
                             generator=torch.Generator().manual_seed(cfg.seed))
     if args.init_npz:
         load_params_npz(args.init_npz, model, strict=False)
-    check_no_orbax_steps(cfg)
+    else:
+        load_latest_weights(cfg, model)
     rng = np.random.default_rng(cfg.seed)
     # the JAX CLI draws the noise of one batch for its init batch first
     draw_noise(rng, cfg.solver.ims_per_batch)

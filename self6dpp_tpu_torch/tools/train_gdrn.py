@@ -1,17 +1,25 @@
-"""GDR-Net test CLI (port of tools/train_gdrn.py --eval-only, what
-test_gdrn.sh runs): the config's test split through the eval loader, the
-GDRN eval step and the pose evaluator; prints the recall tables as
-markdown and writes <output_dir>/<exp_name>/results-bop.csv.
+"""GDR-Net train/test CLI (port of tools/train_gdrn.py, what train_gdrn.sh
+and test_gdrn.sh run).
+
+Training: the config's first train dataset through the train-mode loader
+(augmentation, the configured sampler, labels rendered through kernel B1
+on the card), the stage-I step (engine/gdrn_engine.py) and the trainer
+(engine/trainer.py: checkpoints in <output_dir>/<exp_name>/ckpt,
+metrics.json), with the test split evaluated every test.eval_period
+iterations. --eval-only: the test split through the eval loader, the eval
+step and the pose evaluator; prints the recall tables as markdown and
+writes <output_dir>/<exp_name>/results-bop.csv.
 
     python -m self6dpp_tpu_torch.tools.train_gdrn \\
-        --config configs/gdrn/lm_base.py --eval-only \\
+        --config configs/gdrn/lm_base.py [--eval-only] [--resume] \\
         [--det-file DETS.json] [--init-npz WEIGHTS.npz] [--opts k=v ...] \\
         [--device cpu]
 
-Weights: --init-npz (the JAX package's flat .npz, engine/checkpoint.py);
-without it, the seeded init (cfg.seed) when the checkpoint directory holds
-no orbax step, and an error when it does (orbax is not ported). Training
-(no --eval-only) belongs to the training slice and raises.
+Weights: --init-npz (the JAX package's flat .npz, engine/checkpoint.py)
+over the seeded init (cfg.seed); the student and the teacher start from
+them. Without it, --eval-only takes the latest step of the checkpoint
+directory when there is one. A checkpoint directory with orbax steps (the
+JAX CLIs') raises.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--det-file", default="", help="test detections json")
     p.add_argument("--init-npz", default="",
                    help="flat .npz of JAX-layout weights loaded over the "
@@ -70,25 +79,84 @@ def build_dataset(cfg, train: bool = False, det_file: str = "",
                        seed=cfg.seed, device=device, impl=impl), models, meta
 
 
-def check_no_orbax_steps(cfg) -> None:
-    """Raise when <output_dir>/<exp_name>/ckpt holds orbax steps: the JAX
-    CLIs would resume from them, and the port cannot read them."""
-    d = os.path.join(cfg.output_dir, cfg.exp_name, "ckpt")
-    steps = [s for s in os.listdir(d) if s.isdigit()] \
-        if os.path.isdir(d) else []
+def ckpt_dir(cfg) -> str:
+    return os.path.join(cfg.output_dir, cfg.exp_name, "ckpt")
+
+
+def load_latest_weights(cfg, model) -> None:
+    """The student's weights of the checkpoint directory's latest step
+    into `model`, when there is a step. Raises on orbax steps."""
+    from ..engine.checkpoint import (check_no_orbax_steps, load_params_npz,
+                                     step_dirs)
+    d = ckpt_dir(cfg)
+    check_no_orbax_steps(d)
+    steps = step_dirs(d)[0]
     if steps:
-        raise RuntimeError(
-            f"{d} holds orbax checkpoint steps {sorted(steps)[:4]}, which "
-            "the port does not read; export them with the JAX package's "
-            "save_params_npz and pass --init-npz")
+        load_params_npz(os.path.join(d, str(steps[-1]), "model.npz"), model)
+
+
+def loop_timings(ds, timings: list[dict]) -> list[dict]:
+    """Per iteration of the training loop: the trainer's wait and step
+    seconds beside the loader's host and label-render seconds of its
+    batch (the loader builds one batch ahead of the loop for the init)."""
+    return [{**a, **b} for a, b in zip(ds.timings[1:], timings)]
+
+
+def evaluate_fn(cfg, model, det_file: str, device, impl: str,
+                use_ema: bool = False):
+    """eval_fn(state) -> tables for the trainer: the test split through
+    the eval step (the teacher's with use_ema) and the pose evaluator."""
+    from ..engine import gdrn_engine as eng
+    from ..engine.evaluator import PoseEvaluator, run_inference
+    ds_t, models_t, meta_t = build_dataset(cfg, train=False,
+                                           det_file=det_file, device=device,
+                                           impl=impl)
+    estep = eng.make_eval_step(cfg, model, use_ema=use_ema)
+
+    def eval_fn(st):
+        ev = PoseEvaluator(models_t, meta_t, device=device, impl=impl)
+        run_inference(lambda db: estep(st, db),
+                      ds_t.batches(cfg.solver.ims_per_batch), ev,
+                      device=device)
+        return ev.evaluate()
+    return eval_fn
+
+
+def train(args, cfg, dev, impl: str) -> dict:
+    """The training run of main: returns {'state', 'timings', 'metrics'
+    (the path of metrics.json)}."""
+    from ..engine import gdrn_engine as eng
+    from ..engine.checkpoint import check_no_orbax_steps, load_params_npz
+    from ..engine.evaluator import to_device
+    from ..engine.trainer import do_train
+
+    check_no_orbax_steps(ckpt_dir(cfg))
+    ds, _, _ = build_dataset(cfg, train=True, device=dev, impl=impl)
+    batches = ds.batches(cfg.solver.ims_per_batch)
+    # the JAX CLI takes its first batch to initialise the state
+    next(batches)
+    model = eng.build_gdrn(cfg, dev, seed=cfg.seed)
+    if args.init_npz:
+        load_params_npz(args.init_npz, model, strict=False)
+    state = eng.init_state(cfg, model)
+    eval_fn = None
+    if cfg.test.eval_period > 0:
+        eval_fn = evaluate_fn(cfg, model, args.det_file, dev, impl)
+    timings: list[dict] = []
+    state = do_train(cfg, state, eng.make_train_step(cfg, model), batches,
+                     lambda b: to_device(b, dev), eval_fn=eval_fn,
+                     resume=args.resume, timings=timings)
+    return {"state": state, "timings": loop_timings(ds, timings),
+            "metrics": os.path.join(cfg.output_dir, cfg.exp_name,
+                                    "metrics.json")}
 
 
 def main(argv=None, device=None, impl: str = "kernel") -> dict:
-    """Returns {'tables', 'results' (the CSV's rows), 'csv', 'timings'
-    (per batch: the loader's host and label-render seconds, the wait and
-    step seconds of run_inference), 'evaluate_s'}. device: the default of
-    --device; impl: the fine stage of every render ('kernel' or
-    'plain')."""
+    """Training returns train()'s dict; --eval-only returns {'tables',
+    'results' (the CSV's rows), 'csv', 'timings' (per batch: the loader's
+    host and label-render seconds, the wait and step seconds of
+    run_inference), 'evaluate_s'}. device: the default of --device; impl:
+    the fine stage of every render ('kernel' or 'plain')."""
     from .. import resolve_device
     from ..config import Config, apply_overrides, load_config
     from ..engine import gdrn_engine as eng
@@ -96,14 +164,14 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     from ..engine.evaluator import (PoseEvaluator, run_inference,
                                     save_bop_csv, table_to_markdown)
     from ..engine.train_state import TrainState
+    from ..engine.writers import setup_logger
 
     args = parse_args(argv)
-    if not args.eval_only:
-        raise NotImplementedError(
-            "GDRN training belongs to the training slice (train_gdrn.sh end "
-            "to end); run with --eval-only")
     dev = resolve_device(args.device or device)
     cfg: Config = apply_overrides(load_config(args.config), args.opts)
+    setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
+    if not args.eval_only:
+        return train(args, cfg, dev, impl)
 
     ds, models, meta = build_dataset(cfg, train=False, det_file=args.det_file,
                                      device=dev, impl=impl)
@@ -111,7 +179,7 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     if args.init_npz:
         load_params_npz(args.init_npz, model, strict=False)
     else:
-        check_no_orbax_steps(cfg)
+        load_latest_weights(cfg, model)
     state = TrainState(step=0, model=model, teacher=None, opt=None)
     step = eng.make_eval_step(cfg, model)
     ev = PoseEvaluator(models, meta, device=dev, impl=impl)

@@ -150,14 +150,18 @@ def test_deepim_eval_cli_matches_jax(dataset, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_training_and_orbax_steps(dataset, tmp_path):
+    """Training and eval refuse a checkpoint directory that holds orbax
+    steps (the JAX CLIs' checkpoints, which the port cannot read), and a
+    config the port has no function for."""
     argv = ["--config", "configs/gdrn/synthetic_smoke.py"] + \
         opts(dataset, tmp_path)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    os.makedirs(tmp_path / "gdrn_synthetic_smoke" / "ckpt" / "60")
+    os.makedirs(tmp_path / "deepim_synthetic_smoke" / "ckpt" / "15")
+    with pytest.raises(RuntimeError, match="orbax"):
         tgdrn.main(argv, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(RuntimeError, match="orbax"):
         tdeepim.main(["--config", "configs/deepim/synthetic_smoke.py"]
                      + opts(dataset, tmp_path), device="cpu")
-    os.makedirs(tmp_path / "gdrn_synthetic_smoke" / "ckpt" / "60")
     with pytest.raises(RuntimeError, match="orbax"):
         tgdrn.main(argv[:2] + ["--eval-only"] + argv[2:], device="cpu")
     with pytest.raises(KeyError, match="registered"):

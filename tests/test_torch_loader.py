@@ -1,11 +1,14 @@
-"""The port's eval loader against the JAX package's on the CPU, on the JAX
+"""The port's loader against the JAX package's on the CPU, on the JAX
 generator's miniature BOP set (1 scene, 3 images, 2 objects): every batch
 equal key for key, roi_img and roi_coord_2d within 1e-5, masks and regions
-equal, gt_xyz within one float16 step of the label cache. The JAX loader
+equal, gt_xyz within one float16 step of the label cache. Eval batches,
+and train batches from every sampler with colour, depth and background
+augmentation and the DZI jitter, drawn from one seed. The JAX loader
 renders its labels through its XLA rasterizer; the port's through its
 plain fine stage on the CPU (kernel B1 on the card)."""
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -85,7 +88,8 @@ def assert_batches_equal(jb, tb):
 
 
 def run_both(bop_split, meshes, monkeypatch, cfgs, batch_size=3,
-             det=None, **batch_kw):
+             det=None, train=False, n_batches=None, bg_images=None,
+             **batch_kw):
     monkeypatch.setattr(jfps, "_lib", False)
     jcfg, tcfg = cfgs
     kw = dict(n_regions=8, n_points=64, max_sym=4)
@@ -95,11 +99,13 @@ def run_both(bop_split, meshes, monkeypatch, cfgs, batch_size=3,
     if det is not None:
         jr = jbop.inject_detections(jr, det)
         tr = tbop.inject_detections(tr, det)
-    jd = jloader.GDRNDataset(jcfg, jr, jm, get_meta("lm"), train=False)
-    td = tloader.GDRNDataset(tcfg, tr, tm, tref.get_meta("lm"), train=False,
-                             device="cpu", impl="plain")
-    jb = list(jd.batches(batch_size, **batch_kw))
-    tb = list(td.batches(batch_size, **batch_kw))
+    jd = jloader.GDRNDataset(jcfg, jr, jm, get_meta("lm"), train=train,
+                             seed=5, bg_images=bg_images)
+    td = tloader.GDRNDataset(tcfg, tr, tm, tref.get_meta("lm"), train=train,
+                             seed=5, device="cpu", impl="plain",
+                             bg_images=bg_images)
+    jb = list(itertools.islice(jd.batches(batch_size, **batch_kw), n_batches))
+    tb = list(itertools.islice(td.batches(batch_size, **batch_kw), n_batches))
     return jb, tb, td
 
 
@@ -144,18 +150,51 @@ def test_eval_batches_with_detections_match_jax(bop_split, meshes,
     assert "pose_est_rot" in tb[0]
 
 
+@pytest.mark.parametrize("sampler,workers", [
+    ("training", 0), ("repeat_factor", 2), ("inf_subset", 0)])
+def test_train_batches_match_jax(bop_split, meshes, monkeypatch, sampler,
+                                 workers):
+    """3 sampled batches of 4 (the stream wraps the 6 instances): colour
+    augmentation and depth noise on every sample, the uniform DZI jitter;
+    with workers, the thread pool's child generators and the prefetch
+    thread."""
+    cfgs = configs(sampler=sampler, color_aug_prob=1.0, with_depth=True,
+                   depth_aug_prob=1.0, repeat_thresh=0.9, subset_ratio=0.5)
+    jb, tb, td = run_both(bop_split, meshes, monkeypatch, cfgs, batch_size=4,
+                          train=True, n_batches=3, num_workers=workers,
+                          prefetch=1)
+    assert_batches_equal(jb, tb)
+    assert "_valid" not in tb[0] and "full_depth" not in tb[0]
+    assert len(td.timings) >= 3
+
+
+def test_train_batches_with_background_match_jax(bop_split, meshes,
+                                                 monkeypatch):
+    """Background replacement at probability 1 with the foreground cut
+    (truncate_fg), from backgrounds of another size (resized as
+    cv2.resize does) and of the frame's."""
+    rng = np.random.default_rng(3)
+    bgs = [rng.random((50, 70, 3)).astype(np.float32),
+           rng.random((120, 160, 3)).astype(np.float32)]
+    cfgs = configs(bg_replace_prob=1.0, truncate_fg=True,
+                   color_aug_prob=0.5)
+    jb, tb, _ = run_both(bop_split, meshes, monkeypatch, cfgs, batch_size=3,
+                         train=True, n_batches=2, bg_images=bgs,
+                         num_workers=0)
+    assert_batches_equal(jb, tb)
+
+
 def test_loader_refuses_the_training_mode(bop_split, meshes):
-    _, cfg = configs()
+    """The training mode refuses a sampler it does not have, as the JAX
+    package's does."""
+    _, cfg = configs(sampler="nope")
     tm = tloader.ObjectModels.from_meshes(["ape", "can"], meshes, n_regions=8,
                                           n_points=64, max_sym=4)
     recs = tbop.load_bop_split(bop_split)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tloader.GDRNDataset(cfg, recs, tm, tref.get_meta("lm"), train=True,
-                            device="cpu")
-    ds = tloader.GDRNDataset(cfg, recs, tm, tref.get_meta("lm"),
+    ds = tloader.GDRNDataset(cfg, recs, tm, tref.get_meta("lm"), train=True,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        next(ds.batches(2, infinite=True))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        next(ds.batches(2, num_workers=0))
 
 
 def test_prefetch_raises_the_producers_error():

@@ -9,6 +9,12 @@ Ranger steps: every loss term, the parameters and the EMA teacher at 1e-4.
 The refiner's weights go across with convert.py. The JAX side renders the
 student in Pallas interpret mode, the refiner and the repj renders on its
 XLA path (their renders take no impl); the port on its plain fine stage.
+
+The step's mask head has one channel, so repj's full mask is its visible
+mask and every view's cosine is 1 up to float32 rounding: the best view is
+a tie that each package's summation order breaks. The JAX step's pick is
+recorded from inside its jitted step and pinned in the port's batch
+("repj_best"), so every term is compared at one chosen view.
 """
 
 import dataclasses
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 import self6dpp_tpu.models.deepim as JDM
+import self6dpp_tpu.models.repj_refiner as JRR
 from self6dpp_tpu.config import base as jc
 from self6dpp_tpu.engine import deepim_engine as jde
 from self6dpp_tpu.engine import self_engine as jse
@@ -31,6 +38,7 @@ from self6dpp_tpu_torch.engine import deepim_engine as tde
 from self6dpp_tpu_torch.engine import gdrn_engine as tge
 from self6dpp_tpu_torch.engine import self_engine as tse
 from self6dpp_tpu_torch.models.deepim import DeepIM
+from self6dpp_tpu_torch.models.repj_refiner import view_cosines
 from test_torch_deepim import MICRO, identity_heads, random_params
 from test_torch_self_engine import cpu_run, jax_cfg, jax_state, setup
 
@@ -57,10 +65,35 @@ def configs():
     return s, t, jax_cfg(t), rt, rj
 
 
+def _jax_cosines(vis_prob, full_prob):
+    """repj_weak_loss's best-view cosines, as its own lines compute them
+    (self6dpp_tpu/models/repj_refiner.py:192-199)."""
+    B = vis_prob.shape[0]
+    f = full_prob.reshape(B, -1)
+    v = vis_prob.reshape(B, -1)
+    h = (f > 0.5).astype(f.dtype)
+    dot = (f * v * h).sum(-1)
+    nrm = jnp.sqrt(jnp.maximum((f * f * h).sum(-1), 1e-12)) * \
+        jnp.sqrt(jnp.maximum((v * v * h).sum(-1), 1e-12))
+    return dot / jnp.maximum(nrm, 1e-12)
+
+
 def _runs():
     s, tcfg, jcfg, rt, rj = configs()
     mp = pytest.MonkeyPatch()
     mp.setattr(JDM, "FlowNetS", functools.partial(JFlowNetS, widths=MICRO))
+    jcos, tcos = [], []
+    jrepj, trepj = JRR.repj_weak_loss, tse.repj_weak_loss
+
+    def jax_repj(rot, trans, vis_prob, full_prob, *a, **k):
+        jax.debug.callback(lambda c: jcos.append(np.asarray(c)),
+                           _jax_cosines(vis_prob, full_prob), ordered=True)
+        return jrepj(rot, trans, vis_prob, full_prob, *a, **k)
+
+    def port_repj(rot, trans, vis_prob, full_prob, *a, **k):
+        tcos.append(view_cosines(vis_prob, full_prob).detach().numpy())
+        return trepj(rot, trans, vis_prob, full_prob, *a, **k)
+    mp.setattr(JRR, "repj_weak_loss", jax_repj)
     try:
         dmodel = jde.build_deepim(rj)
         b = s["jb"]
@@ -86,11 +119,17 @@ def _runs():
     state.teacher.load_state_dict(gdrn_flax_to_state_dict(s["teacher"], model))
     step = tse.make_self_train_step(tcfg, model, refiner=(refiner, rt))
     tmetrics = []
-    for _ in range(STEPS):
-        state, m = step(state, s["tb"])
-        tmetrics.append({k: float(x) for k, x in m.items()})
+    mp.setattr(tse, "repj_weak_loss", port_repj)
+    try:
+        for i in range(STEPS):
+            best = torch.tensor([int(np.argmax(jcos[i]))])
+            state, m = step(state, dict(s["tb"], repj_best=best))
+            tmetrics.append({k: float(x) for k, x in m.items()})
+    finally:
+        mp.undo()
     return dict(s=s, rt=rt, refiner=refiner, jstate=jstate,
                 jmetrics=jmetrics, tstate=state, tmetrics=tmetrics,
+                jcos=jcos, tcos=tcos,
                 init=gdrn_flax_to_state_dict(s["variables"], model))
 
 
@@ -111,6 +150,20 @@ def test_refined_step_metrics_match_jax(runs):
                     *(f"loss_repj_{t}_{s}" for t in ("miou", "msssim")
                       for s in (1, 2, 4))}
     assert all(last[k] > 0 for k in repj if "miou" in k), last
+
+
+def test_best_view_is_a_float32_tie(runs):
+    """With one mask channel the best-view cosines are all 1 but for
+    rounding: in each step they lie within 4 float32 ulps of 1, so
+    neither package's pick (the argmax of its own rounded cosines) is a
+    property of the model, and the step pins the JAX pick in the port."""
+    ulp = np.spacing(np.float32(1))
+    assert len(runs["jcos"]) == len(runs["tcos"]) == STEPS
+    for jc_, tc_ in zip(runs["jcos"], runs["tcos"]):
+        assert jc_.dtype == tc_.dtype == np.float32
+        assert jc_.shape == tc_.shape == (2,)
+        np.testing.assert_allclose(jc_, 1.0, rtol=0, atol=4 * ulp)
+        np.testing.assert_allclose(tc_, 1.0, rtol=0, atol=4 * ulp)
 
 
 @pytest.mark.parametrize("which", ["params", "ema_params"])
