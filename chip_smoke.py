@@ -26,7 +26,10 @@
     the evaluator's VSD renders), and the evaluator at LM's 480x640 frame;
   * training through the CLIs (train_gdrn.sh, train_deepim.sh,
     train_self6dpp.sh) on that set: lm_base, lm_flownet and lm_ss at full
-    width, the loader in train mode, checkpoints, resume, warm start.
+    width, the loader in train mode, checkpoints, resume, warm start;
+  * the YOLOv4 detector (train_yolov4.sh) at lm_base's detector widths:
+    training, resume, --eval-only with its detections json, and the GDRN
+    eval CLI reading that json.
 
     python3 chip_smoke.py [--record FILE]
 
@@ -124,7 +127,19 @@ exits non-zero):
      run's last step (B3's gradient away from Lab ties), 6 bf16
      iterations with one B1, B2 and B3 launch each, and 4 iterations of
      configs/self6dpp/synthetic_smoke.py (geo, synsup, pose with the
-     refiner and repj).
+     refiner and repj);
+ 22. run two float32 YOLOv4 train steps at a tiny width (128², width
+     0.125, depth 0.33, 2 images of the set through the detector's loader)
+     on the card and on the CPU (losses and decoded predictions agree; NMS
+     on both), then the detector CLI (train_yolov4) at lm_base's widths
+     (640², width and depth 1.0, 6 images, float32, cuDNN's TF32 at
+     PyTorch's default) on the train split, 6 iterations, resumed to 8,
+     --eval-only over the test split writing the detections json, and the
+     GDRN eval CLI at lm_base reading that json: finite losses, each
+     iteration once, no kernel launched by the detector; ms per
+     iteration, images/s, the loader's share, the step's CUDA-event phases
+     (forward, loss, backward, solver), peak memory, inference ms per
+     image, NMS ms, the AP table and its seconds.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -3010,6 +3025,270 @@ def train_kernel_lines(k21, timed, b1_label, label_launches):
     return rows
 
 
+# ---------------------------------------------------------------- detector
+YOLO_TINY = dict(input_size=128, width_multiple=0.125, depth_multiple=0.33)
+YOLO_CPU_BATCH = 2                # phase 22a: images a batch
+YOLO_LR = 1e-3                    # phase 22a: constant, no warm-up
+TOL_YOLO_CPU = 1e-4               # phase 22a: card vs CPU losses (relative)
+TOL_YOLO_CPU_PRED = 1e-4          # and the decoded predictions after two
+                                  # steps: |card - cpu| / max(|cpu|, 1)
+                                  # (boxes in px reach ~10³)
+YOLO_ITERS = 6                    # phase 22b: iterations of the first run
+YOLO_RESUME_ITERS = 8             # and the total of the resumed run
+YOLO_DIR = os.path.join(TRAIN_DIR, "yolo")
+
+
+def synthetic_classes():
+    """class_of_obj_id of the 'synthetic' meta, as the detector CLI maps
+    object ids to classes."""
+    from self6dpp_tpu_torch.data.ref import get_meta
+    meta = get_meta("synthetic")
+    return lambda oid: meta.objects.index(meta.id2obj[oid])
+
+
+def check_yolo_card_vs_cpu(root, device):
+    """Phase 22a: two float32 train steps of YOLOv4 at the tiny width
+    (YOLO_TINY, 2 classes, Ranger at a constant YOLO_LR, clip 35) on two
+    batches of YOLO_CPU_BATCH train images through the detector's loader,
+    on the card (TF32 off, cuDNN deterministic) and on the CPU (torch on
+    one thread), from the same seeded weights: losses within TOL_YOLO_CPU;
+    then one eval batch decoded by both models within TOL_YOLO_CPU_PRED,
+    and NMS run on both decoded arrays."""
+    from self6dpp_tpu_torch.config import DetConfig, gdrn_lm_base
+    from self6dpp_tpu_torch.convert import param_kinds
+    from self6dpp_tpu_torch.data.bop import load_bop_split
+    from self6dpp_tpu_torch.data.det_loader import DetDataset
+    from self6dpp_tpu_torch.engine.optim import build_optimizer
+    from self6dpp_tpu_torch.engine.train_state import create_train_state
+    from self6dpp_tpu_torch.models.yolo import (YoloConfig, build_yolo,
+                                                decode_predictions,
+                                                non_max_suppression)
+    from self6dpp_tpu_torch.tools.train_yolov4 import (make_train_step,
+                                                       to_device)
+    ycfg = YoloConfig(num_classes=2, **YOLO_TINY)
+    det = DetConfig(input_size=ycfg.input_size)
+    cls_of = synthetic_classes()
+    lm = os.path.join(root, "lm")
+    batches = DetDataset(load_bop_split(os.path.join(lm, "train")), det,
+                         cls_of, train=True, seed=SEED
+                         ).train_batches(YOLO_CPU_BATCH)
+    train = [next(batches) for _ in range(2)]
+    test = next(DetDataset(load_bop_split(os.path.join(lm, "test")), det,
+                           cls_of, train=False).eval_batches(YOLO_CPU_BATCH))
+    solver = dataclasses.replace(gdrn_lm_base().solver, base_lr=YOLO_LR,
+                                 lr_sched="constant")
+
+    def run(dev):
+        model = build_yolo(ycfg, dev, seed=SEED)
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        opt = build_optimizer(solver, model.parameters(),
+                              kinds=list(param_kinds(model).values()))
+        st = create_train_state(model, opt, with_ema=False)
+        step = make_train_step(ycfg)
+        losses = []
+        for b in train:
+            st, m = step(st, to_device(b, dev))
+            losses.append({k: float(v) for k, v in m.items()})
+        with torch.no_grad():
+            x = torch.from_numpy(test[0]).to(dev).permute(0, 3, 1, 2)
+            pred = decode_predictions(model.eval()(x.contiguous()),
+                                      ycfg).cpu().numpy()
+        return losses, pred, init, {n: p.detach().cpu()
+                                    for n, p in model.named_parameters()}
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det_flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        lg, pg, init, wg = run(device)
+    finally:
+        torch.backends.cudnn.deterministic = det_flag
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lc, pc, _, wc = run(torch.device("cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    ng = non_max_suppression(pg, 0.001, 0.65)
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    nc = non_max_suppression(pc, 0.001, 0.65)
+    top = [float(np.abs(a[0] - b[0]).max()) if len(a) and len(b) else None
+           for a, b in zip(ng, nc)]
+    out = {"input_size": ycfg.input_size, "batch": YOLO_CPU_BATCH,
+           "width_multiple": ycfg.width_multiple,
+           "depth_multiple": ycfg.depth_multiple, "steps": 2,
+           "losses_card": lg, "losses_cpu": lc,
+           "loss_rel_err": max(loss_err(a, b) for a, b in zip(lg, lc)),
+           "pred_shape": list(pg.shape),
+           "pred_max_abs_err": float(np.abs(pg - pc).max()),
+           "pred_max_rel_err": float((np.abs(pg - pc)
+                                      / np.maximum(np.abs(pc), 1)).max()),
+           "params_card_vs_cpu_max_abs": max_abs_diff(wg, wc),
+           "params_moved_max_abs": max_abs_diff(wg, init),
+           "nms_kept_card": [len(a) for a in ng],
+           "nms_kept_cpu": [len(a) for a in nc],
+           "nms_top_max_abs_err": top, "nms_ms": nms_ms}
+    require(out["loss_rel_err"] <= TOL_YOLO_CPU, "YOLOv4 card vs CPU losses",
+            out)
+    require(out["pred_max_rel_err"] <= TOL_YOLO_CPU_PRED,
+            "YOLOv4 card vs CPU decoded predictions", out)
+    require(out["params_moved_max_abs"] > 10 * out[
+        "params_card_vs_cpu_max_abs"], "YOLOv4: the params did not move", out)
+    return out
+
+
+@contextlib.contextmanager
+def yolo_step_marks(marks):
+    """While active, the detector CLI's train steps record CUDA events at
+    the start and after the forward, the loss, the backward and the solver:
+    one list of (name, event) per step appended to `marks`."""
+    from self6dpp_tpu_torch.engine.gdrn_engine import event_marker
+    from self6dpp_tpu_torch.tools import train_yolov4 as ty
+    inner = ty.make_train_step
+
+    def marked(ycfg):
+        step = inner(ycfg)
+
+        def run(state, batch):
+            m = []
+            mark = event_marker(m)
+            mark("start")
+            out = step(state, batch, mark)
+            marks.append(m)
+            return out
+        return run
+    ty.make_train_step = marked
+    try:
+        yield marks
+    finally:
+        ty.make_train_step = inner
+
+
+def run_detector_cli(argv, device):
+    """One in-process run of the detector CLI with the kernel launch counts
+    set to 0 just before and read just after. Returns (result, launches,
+    wall seconds)."""
+    from self6dpp_tpu_torch.tools import train_yolov4
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    res = train_yolov4.main(argv, device=device)
+    torch.cuda.synchronize()
+    return res, kernel_launches(), time.perf_counter() - t0
+
+
+def yolo_loop_split(res, rows, marks, batch):
+    """ms per iteration (metrics.json's time_per_iter: log_period 1 copies
+    each step's metrics to the host), the loader's wait and host ms per
+    batch, the step's phases by CUDA events, images/s; the first iteration
+    (warm-up) left out."""
+    it = [r["time_per_iter"] for r in rows[1:]]
+    med = lambda xs: float(np.median(xs) * 1e3)
+    phases = {}
+    for m in marks[1:]:
+        for (_, a), (name, b) in zip(m, m[1:]):
+            phases.setdefault(name, []).append(a.elapsed_time(b))
+    per_iter = med(it)
+    return {"iterations_timed": len(it), "ms_per_iter": per_iter,
+            "ms_per_iter_range": [min(it) * 1e3, max(it) * 1e3],
+            "images_per_s": batch / (per_iter / 1e3),
+            "loader_wait_ms": med([t["wait_s"] for t in res["timings"][1:]]),
+            "loader_host_ms": med([t["host_s"] for t in res["timings"][1:]]),
+            "loader_share": float(np.median(
+                [t["host_s"] for t in res["timings"][1:]]) * 1e3 / per_iter),
+            "step_phase_ms_median": {
+                ("solver" if k == "optimizer_ema" else k): float(np.median(v))
+                for k, v in phases.items()},
+            "step_phase_ms_sum": float(sum(np.median(v)
+                                           for v in phases.values()))}
+
+
+def run_detector(root, device):
+    """Phase 22b: the detector CLI at lm_base's widths (YOLOv4 at 640²,
+    width and depth 1.0, 6 images a batch, float32, Ranger) on the
+    synthetic set's train split, 2 classes, YOLO_ITERS iterations with a
+    checkpoint at the last, then --resume to YOLO_RESUME_ITERS; cuDNN's
+    TF32 at PyTorch's default (on), as the CLI leaves it. Then --eval-only
+    over the test split writing the detections json, and train_gdrn
+    --eval-only --det-file at lm_base on that json (phase 19's GDRN). The
+    detector path launches no kernel."""
+    from self6dpp_tpu_torch.engine.checkpoint import step_dirs
+    from self6dpp_tpu_torch.tools import train_gdrn
+    argv = ["--config", "configs/gdrn/lm_base.py"] + syn_opts(
+        root, YOLO_DIR, f"ckpt_period={YOLO_ITERS}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with yolo_step_marks([]) as marks:
+            res, launches, wall = run_detector_cli(
+                argv + [f"solver.total_iters={YOLO_ITERS}"], device)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = read_metrics(res["metrics"])
+        check_finite_losses(rows, "train_yolov4", YOLO_ITERS)
+        require(sum(launches.values()) == 0, "train_yolov4 launched kernels",
+                launches)
+        ckpt = os.path.join(os.path.dirname(res["metrics"]), "ckpt")
+        require(step_dirs(ckpt) == ([YOLO_ITERS], []), "train_yolov4 steps",
+                step_dirs(ckpt))
+        res2, _, wall2 = run_detector_cli(
+            argv[:2] + ["--resume"] + argv[2:]
+            + [f"solver.total_iters={YOLO_RESUME_ITERS}"], device)
+        rows2 = read_metrics(res2["metrics"])
+        check_finite_losses(rows2, "train_yolov4 resumed", YOLO_RESUME_ITERS)
+        require(rows2[:YOLO_ITERS] == rows
+                and res2["state"].step == YOLO_RESUME_ITERS
+                and len(res2["timings"]) == YOLO_RESUME_ITERS - YOLO_ITERS,
+                "train_yolov4 resume redid iterations", len(res2["timings"]))
+        require(step_dirs(ckpt) == ([YOLO_ITERS, YOLO_RESUME_ITERS], []),
+                "train_yolov4 steps after resume", step_dirs(ckpt))
+        dets_path = os.path.join(YOLO_DIR, "dets.json")
+        ev, ev_launches, ev_wall = run_detector_cli(
+            argv[:2] + ["--eval-only", "--out-det", dets_path] + argv[2:],
+            device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    require(sum(ev_launches.values()) == 0, "detector eval launched kernels",
+            ev_launches)
+    with open(dets_path) as f:
+        dets = json.load(f)
+    n_test = len(os.listdir(os.path.join(root, "lm", "test", "000000",
+                                         "rgb")))
+    require(len(dets) == n_test and all(
+        {"obj_id", "bbox_est", "score", "time"} == set(d)
+        and len(d["bbox_est"]) == 4 and np.isfinite(d["score"])
+        for rows_ in dets.values() for d in rows_),
+        "detections json", len(dets), n_test)
+    per_img = [t["infer_s"] / t["images"] for t in ev["timings"][1:]]
+    g, g_launches, _, _, g_wall = run_cli(
+        train_gdrn.main, ["--config", "configs/gdrn/lm_base.py",
+                          "--eval-only", "--det-file", dets_path]
+        + syn_opts(root, os.path.join(TRAIN_DIR, "gdrn")), device)
+    require(len(g["results"]) > 0, "train_gdrn --det-file: no results")
+    return {"config": "gdrn_lm_base", "input_size": 640,
+            "width_multiple": 1.0, "depth_multiple": 1.0, "batch": 6,
+            "classes": 2, "compute_dtype": "float32",
+            "cudnn_allow_tf32": True, "iterations": YOLO_ITERS,
+            "resumed_to": YOLO_RESUME_ITERS, "wall_s": wall,
+            "wall_s_resumed": wall2, "peak_mem_gib": peak,
+            "last_losses": loss_rows(rows2)[-1],
+            **yolo_loop_split(res, rows, marks, 6),
+            "eval": {"images": n_test, "wall_s": ev_wall,
+                     "infer_ms_per_image": float(np.median(per_img) * 1e3),
+                     "nms_ms_per_batch": float(np.median(
+                         [t["nms_s"] for t in ev["timings"]]) * 1e3),
+                     "loader_host_ms_per_batch": float(np.median(
+                         [t["host_s"] for t in ev["loader_timings"]]) * 1e3),
+                     "evaluate_s": ev["evaluate_s"], "eval_s": ev["eval_s"],
+                     "ap": ev["ap"],
+                     "detections": sum(len(v) for v in dets.values())},
+            "gdrn_det_file": {"wall_s": g_wall, "results": len(g["results"]),
+                              "b1_launches": g_launches["fine_raster_fwd"],
+                              "avg": g["tables"].get("avg", {})}}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3238,6 +3517,12 @@ def main(record_path: str = "") -> int:
     print(f"train_self6dpp: {json.dumps(self_train)}", flush=True)
     print(f"lm_ss kernels vs plain: {json.dumps(k21)}", flush=True)
     clock["train_self6dpp_phase21_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    yolo_cpu = check_yolo_card_vs_cpu(syn_root, device)
+    print(f"YOLOv4 fp32 card vs CPU: {json.dumps(yolo_cpu)}", flush=True)
+    yolo = run_detector(syn_root, device)
+    print(f"train_yolov4: {json.dumps(yolo)}", flush=True)
+    clock["yolov4_phase22_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -3257,7 +3542,8 @@ def main(record_path: str = "") -> int:
               "lm_evaluator": lm_eval, "vsd_b1": b1_vsd,
               "train_gdrn": gdrn_train, "train_label_cache_b1": b1_train_label,
               "train_deepim": deepim_train, "train_self6dpp": self_train,
-              "lm_ss_kernels": k21, "clock": clock,
+              "lm_ss_kernels": k21, "yolov4_card_vs_cpu": yolo_cpu,
+              "train_yolov4": yolo, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3349,6 +3635,18 @@ def main(record_path: str = "") -> int:
                                        "config", "batch", "ms_per_iter",
                                        "step_ms", "loader_wait_ms",
                                        "images_per_s", "launches")},
+                               "train_yolov4": {
+                                   k: yolo[k] for k in (
+                                       "config", "batch", "input_size",
+                                       "ms_per_iter", "images_per_s",
+                                       "loader_host_ms", "loader_wait_ms",
+                                       "step_phase_ms_median",
+                                       "peak_mem_gib")},
+                               "yolov4_eval": {
+                                   k: yolo["eval"][k] for k in (
+                                       "infer_ms_per_image",
+                                       "nms_ms_per_batch", "evaluate_s",
+                                       "ap")},
                                "png_decode_ms_lm_frame": {
                                    k: png[k]["ms"] for k in (
                                        "rgb_paeth", "rgb", "mask",

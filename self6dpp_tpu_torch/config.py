@@ -182,6 +182,29 @@ class RendererConfig:
 
 
 @dataclass(frozen=True)
+class DetConfig:
+    """The YOLOv4 detector: input size, widths and the train-time
+    augmentation of data/det_loader.py (mosaic, random affine, HSV,
+    flips). Defaults are the JAX package's."""
+    input_size: int = 640
+    width_multiple: float = 1.0
+    depth_multiple: float = 1.0
+    max_objs: int = 16              # padded targets per image
+    # augmentation (train split only)
+    aug_mosaic: bool = False        # 4-image mosaic
+    aug_hsv_prob: float = 1.0
+    hsv_h: float = 0.015            # HSV gains (fractions)
+    hsv_s: float = 0.7
+    hsv_v: float = 0.4
+    rand_rotate_deg: float = 0.0    # random_affine knobs
+    rand_translate: float = 0.0
+    rand_scale: float = 0.5
+    rand_shear: float = 0.0
+    rand_hflip: bool = True
+    rand_vflip: bool = False
+
+
+@dataclass(frozen=True)
 class DistConfig:
     data_axis: str = "data"
     fsdp_axis: str = "fsdp"
@@ -344,6 +367,7 @@ class Config:
     test: TestConfig = field(default_factory=TestConfig)
     renderer: RendererConfig = field(default_factory=RendererConfig)
     self_sup: SelfSupConfig = field(default_factory=SelfSupConfig)
+    det: DetConfig = field(default_factory=DetConfig)
     dist: DistConfig = field(default_factory=DistConfig)
     ckpt_period: int = 5000
     ckpt_max_to_keep: int = 2

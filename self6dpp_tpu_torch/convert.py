@@ -1,7 +1,8 @@
 """JAX-package variables (nested dicts of numpy arrays) -> the port's
-state_dicts, for DeepIM (its three variants), FlowNetS, GDRN and LPIPS,
-and the GDRN's and DeepIM's state_dicts back to JAX-package variables
-(gdrn_state_dict_to_flax, state_dict_to_flax).
+state_dicts, for DeepIM (its three variants), FlowNetS, GDRN, YOLOv4 and
+LPIPS, and the GDRN's, DeepIM's and YOLOv4's state_dicts back to
+JAX-package variables (gdrn_state_dict_to_flax, state_dict_to_flax,
+yolo_state_dict_to_flax).
 
 Inverts the key maps and layout changes of tools/convert_torch_weights.py
 (flownet_key_map, convert_deepim, resnet_key_map, geo_head_key_map,
@@ -313,13 +314,21 @@ def flownet_flax_to_state_dict(variables: Mapping, net
         net.has_decoder, net.out_flow_level, net.use_bn), None)
 
 
+def _key_map(model) -> dict[str, tuple[str, str]]:
+    from .models.yolo import YOLOv4
+    if isinstance(model, DeepIM):
+        return deepim_key_map(model)
+    if isinstance(model, YOLOv4):
+        return yolo_key_map(model)
+    return gdrn_key_map(model)
+
+
 def param_kinds(model) -> dict[str, str]:
     """{parameter name: the kind of its JAX counterpart's layout ('conv',
-    'deconv', 'fc', 'fc_flat', 'dense', 'bn', 'gn', 'mtl')} of a DeepIM or
-    a GDRN: what the optimizers that reduce over a tensor's axes (sgd_gc,
-    adamp, sgdp) need to reduce as the JAX package does."""
-    key_map = deepim_key_map(model) if isinstance(model, DeepIM) \
-        else gdrn_key_map(model)
+    'deconv', 'fc', 'fc_flat', 'dense', 'bn', 'gn', 'mtl')} of a DeepIM, a
+    GDRN or a YOLOv4: what the optimizers that reduce over a tensor's axes
+    (sgd_gc, adamp, sgdp) need to reduce as the JAX package does."""
+    key_map = _key_map(model)
     return {n: key_map[n.rsplit(".", 1)[0]][0]
             for n, _ in model.named_parameters()}
 
@@ -367,6 +376,73 @@ def state_dict_to_flax(model: DeepIM, state_dict: Mapping | None = None
     flax_to_state_dict."""
     sd = model.state_dict() if state_dict is None else state_dict
     return _state_dict_to_flax(sd, deepim_key_map(model), model.feat_hwc)
+
+
+# ---------------------------------------------------------------------------
+# YOLOv4
+# ---------------------------------------------------------------------------
+
+# the port's top-level YOLOv4 modules in the JAX model's call order, which
+# is the order of Flax's auto-names (ConvBnMish_i, CSPBlock_i, SPP_0)
+_YOLO_TOP = ("stem", "down1", "csp1", "down2", "csp2", "down3", "csp3",
+             "down4", "csp4", "down5", "csp5", "spp", "reduce5", "lat4",
+             "td4", "reduce4", "lat3", "td3", "bu3", "pan4", "bu4", "pan5")
+
+
+def _yolo_block_map(mod, tpath: str, fpath: str
+                    ) -> dict[str, tuple[str, str]]:
+    """The leaves of one YOLOv4 block: ConvBnMish (Conv_0, BatchNorm_0),
+    Bottleneck and SPP (ConvBnMish_0, ConvBnMish_1), CSPBlock
+    (ConvBnMish_0, Bottleneck_i, Conv_0 = cv3, Conv_1 = cv2, BatchNorm_0,
+    ConvBnMish_1)."""
+    from .models.yolo import Bottleneck, ConvBnMish, CSPBlock, SPP
+    if isinstance(mod, ConvBnMish):
+        return {f"{tpath}.conv": ("conv", f"{fpath}.Conv_0"),
+                f"{tpath}.bn": ("bn", f"{fpath}.BatchNorm_0")}
+    m: dict[str, tuple[str, str]] = {}
+    if isinstance(mod, (Bottleneck, SPP)):
+        children = [("cv1", "ConvBnMish_0"), ("cv2", "ConvBnMish_1")]
+    elif isinstance(mod, CSPBlock):
+        children = [("cv1", "ConvBnMish_0"), ("cv4", "ConvBnMish_1")] + [
+            (f"m.{i}", f"Bottleneck_{i}") for i in range(len(mod.m))]
+        m[f"{tpath}.cv3"] = ("conv", f"{fpath}.Conv_0")
+        m[f"{tpath}.cv2"] = ("conv", f"{fpath}.Conv_1")
+        m[f"{tpath}.bn"] = ("bn", f"{fpath}.BatchNorm_0")
+    else:
+        raise TypeError(f"not a YOLOv4 block: {type(mod).__name__}")
+    for t, f in children:
+        m.update(_yolo_block_map(mod.get_submodule(t), f"{tpath}.{t}",
+                                 f"{fpath}.{f}"))
+    return m
+
+
+def yolo_key_map(model) -> dict[str, tuple[str, str]]:
+    """{torch module path: (kind, flax module path)} for YOLOv4."""
+    count: dict[str, int] = {}
+    m: dict[str, tuple[str, str]] = {}
+    for name in _YOLO_TOP:
+        mod = getattr(model, name)
+        cls = type(mod).__name__
+        i = count.get(cls, 0)
+        count[cls] = i + 1
+        m.update(_yolo_block_map(mod, name, f"{cls}_{i}"))
+    for i in range(len(model.heads)):
+        m[f"heads.{i}"] = ("conv", f"Conv_{i}")
+    return m
+
+
+def yolo_flax_to_state_dict(variables: Mapping, model
+                            ) -> dict[str, torch.Tensor]:
+    """variables: the JAX YOLOv4's {'params': ..., 'batch_stats': ...}.
+    Returns a state_dict that the port's YOLOv4 takes with strict=True."""
+    return _convert(model, _variables(variables), yolo_key_map(model), None)
+
+
+def yolo_state_dict_to_flax(model, state_dict: Mapping | None = None) -> dict:
+    """The port YOLOv4's state_dict (default: its own) as the JAX YOLOv4's
+    variables: the inverse of yolo_flax_to_state_dict."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    return _state_dict_to_flax(sd, yolo_key_map(model), None)
 
 
 # reference LPIPS (PerceptualSimilarity, alexnet) module names -> the port's

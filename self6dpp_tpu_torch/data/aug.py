@@ -32,6 +32,14 @@ resizes backgrounds with cv2.resize; gaussian_blur_5 and resize_linear
 compute what OpenCV computes for float images (its kernel from sigma, its
 BORDER_REFLECT_101; its pixel-centre convention with edge clamping), and
 resize_nearest is cv2.INTER_NEAREST, for the training CLI's image grids.
+
+The detector's loader (data/det_loader.py) works on uint8 images, where
+OpenCV computes otherwise: resize_u8 (INTER_LINEAR and INTER_AREA, up and
+down), warp_affine_u8 (any affine, a constant border), rotation_matrix_2d,
+rgb_to_hsv_u8 and hsv_to_rgb_u8 reproduce OpenCV 5.0's uint8 paths bit for
+bit (tests/test_torch_det_loader.py holds each against cv2). Where OpenCV
+splits a row between vector steps and a scalar tail that round otherwise,
+the split is that of its AVX2 build.
 """
 
 from __future__ import annotations
@@ -361,3 +369,253 @@ def add_noise_depth(depth: np.ndarray, rng: np.random.Generator,
     if depth.ndim == 3:
         gauss = np.repeat(gauss[:, :, None], depth.shape[2], axis=2)
     return (depth + gauss).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# OpenCV's uint8 paths (the detector's loader, data/det_loader.py)
+# ---------------------------------------------------------------------------
+
+RESIZE_COEF = 2048          # INTER_RESIZE_COEF_SCALE: 11-bit resize weights
+HSV_SHIFT = 12              # the fixed point of the RGB -> HSV tables
+HSV_VEC = 32                # pixels per vector step of HSV -> RGB (AVX2)
+WARP_VEC = 16               # pixels per vector step of the uint8 warp (AVX2)
+
+
+def _resize_weights(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(1 - a, a) of float32 fractions as 11-bit integers, each rounded
+    half to even (saturate_cast<short>)."""
+    one = _F32(1)
+    return (np.rint((one - a) * _F32(RESIZE_COEF)).astype(np.int64),
+            np.rint(a * _F32(RESIZE_COEF)).astype(np.int64))
+
+
+def _u8_linear_taps(n_src: int, n_dst: int, area: bool):
+    """OpenCV's source index and float32 fraction along one axis for the
+    linear resize (f = (d + 0.5) · scale - 0.5 rounded to float32) or for
+    INTER_AREA upscaling (s = floor(d · scale), a = (d + 1) - (s + 1) /
+    scale, wrapped into [0, 1) and 0 where not positive); scale = n_src /
+    n_dst as 1 / (n_dst / n_src) in float64."""
+    inv = n_dst / n_src
+    scale = 1.0 / inv
+    d = np.arange(n_dst, dtype=np.float64)
+    if area:
+        s = np.floor(d * scale).astype(np.int64)
+        a = ((d + 1) - (s + 1) * inv).astype(_F32)
+        a = np.where(a <= 0, _F32(0), a - np.floor(a)).astype(_F32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(_F32)
+        s = np.floor(f).astype(np.int64)
+        a = (f - s.astype(_F32)).astype(_F32)
+    return s, a
+
+
+def _resize_u8_linear(img: np.ndarray, dw: int, dh: int, area: bool
+                      ) -> np.ndarray:
+    h, w = img.shape[:2]
+    sx, ax = _u8_linear_taps(w, dw, area)
+    sy, ay = _u8_linear_taps(h, dh, area)
+    # columns past an edge take the edge pixel at weight (1, 0)
+    ax[(sx < 0) | (sx >= w - 1)] = 0
+    sx = np.clip(sx, 0, w - 1)
+    a0, a1 = _resize_weights(ax)
+    # rows past an edge read the edge row twice and keep their weights
+    b0, b1 = _resize_weights(ay)
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    px = np.asarray(img, np.int64)
+    cext = (None, slice(None)) + (None,) * (img.ndim - 2)
+    row = px[:, sx] * a0[cext] + px[:, np.minimum(sx + 1, w - 1)] * a1[cext]
+    rext = (slice(None),) + (None,) * (img.ndim - 1)
+    # the vertical pass of VResizeLinearVec_32s8u: 16-bit high products of
+    # the rows shifted right by 4, then (t0 + t1 + 2) >> 2
+    out = (((b0[rext] * (row[y0] >> 4)) >> 16)
+           + ((b1[rext] * (row[y1] >> 4)) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
+
+
+def _area_table(n_src: int, n_dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """computeResizeAreaTab: per destination pixel its source indices and
+    float32 weights, in OpenCV's order, padded with weight 0."""
+    scale = 1.0 / (n_dst / n_src)
+    rows = []
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, n_src - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((n_dst, k), np.int64)
+    wgt = np.zeros((n_dst, k), _F32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], wgt[d, j] = s, a
+    return idx, wgt
+
+
+def _resize_u8_area_down(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """ResizeArea_Invoker: each source row's weighted taps summed in
+    float32 in table order, the rows summed likewise with their weights,
+    rounded half to even."""
+    h, w = img.shape[:2]
+    xi, xw = _area_table(w, dw)
+    yi, yw = _area_table(h, dh)
+    src = np.asarray(img, _F32)
+    src = src[..., None] if img.ndim == 2 else src
+    buf = np.zeros((h, dw, src.shape[2]), _F32)
+    for j in range(xi.shape[1]):
+        buf = buf + src[:, xi[:, j]] * xw[None, :, j, None]
+    out = yw[:, 0, None, None] * buf[yi[:, 0]]
+    for j in range(1, yi.shape[1]):
+        out = out + yw[:, j, None, None] * buf[yi[:, j]]
+    out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out[..., 0] if img.ndim == 2 else out
+
+
+def resize_u8(img: np.ndarray, dsize: tuple[int, int],
+              interpolation: str = "linear") -> np.ndarray:
+    """cv2.resize(img, dsize, interpolation=INTER_LINEAR or INTER_AREA) of a
+    uint8 image (H, W[, C]), bit for bit with OpenCV 5.0; dsize = (width,
+    height).
+      * INTER_LINEAR, and INTER_AREA when it upscales: 11-bit fixed-point
+        weights (the area mode's own fractions), the horizontal pass in
+        integers, the vertical pass as its vector kernel rounds it; rows
+        past an edge keep their weights and read the edge row twice;
+      * an exact halving of both sides (either mode): (sum of 2x2 + 2) >> 2;
+      * INTER_AREA downscaling: the area table's float32 weights summed
+        along x, then y, rounded half to even."""
+    if interpolation not in ("linear", "area"):
+        raise ValueError(f"unknown interpolation: {interpolation!r}")
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_u8 takes uint8 images: {img.dtype}")
+    h, w = img.shape[:2]
+    dw, dh = dsize
+    if (dw, dh) == (w, h):
+        return img.copy()
+    if w == 2 * dw and h == 2 * dh:
+        px = img.astype(np.int32)
+        s = px[0::2, 0::2] + px[0::2, 1::2] + px[1::2, 0::2] + px[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    if interpolation == "area" and dw <= w and dh <= h:
+        return _resize_u8_area_down(img, dw, dh)
+    return _resize_u8_linear(img, dw, dh, interpolation == "area")
+
+
+def rotation_matrix_2d(center: tuple[float, float], angle: float,
+                       scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center, angle, scale): 2x3 float64, the
+    centre rounded to float32 (a Point2f) first."""
+    cx, cy = float(_F32(center[0])), float(_F32(center[1]))
+    a = angle * (np.pi / 180)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def warp_affine_u8(src: np.ndarray, M: np.ndarray, dsize: tuple[int, int],
+                   border_value: int = 0) -> np.ndarray:
+    """cv2.warpAffine(src, M, dsize, flags=INTER_LINEAR,
+    borderValue=(v, v, v)) of a uint8 image (H, W, 3), any affine M (source
+    to destination), bit for bit with OpenCV 5.0's uint8 kernel: M inverted
+    in float64 and rounded to float32; the source coordinate of (x, y) is
+    fma(M0, x, M1·y + M2) on the columns of whole 16-pixel vector steps of
+    each row and fma(x, M0, M1·y) + M2 on the rest (the scalar tail);
+    neighbours outside the image read the border value; the four are
+    blended by float32 lerps (fma, x first) and rounded half to even."""
+    img = np.asarray(src)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise TypeError(f"warp_affine_u8 takes uint8 (H, W, C): "
+                        f"{img.dtype} {img.shape}")
+    m = invert_affine(M).astype(_F32).reshape(-1)
+    w, h = dsize
+    xs = np.arange(w, dtype=_F32)[None, :]
+    ys = np.arange(h, dtype=_F32)[:, None]
+    vec = np.arange(w)[None, :] < w - w % WARP_VEC
+    sx = np.where(vec, _fma(m[0], xs, m[1] * ys + m[2]),
+                  _fma(xs, m[0], m[1] * ys) + m[2])
+    sy = np.where(vec, _fma(m[3], xs, m[4] * ys + m[5]),
+                  _fma(xs, m[3], m[4] * ys) + m[5])
+    fx, fy = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - fx)[..., None], (sy - fy)[..., None]
+    X, Y = fx.astype(np.int64), fy.astype(np.int64)
+    hs, ws = img.shape[:2]
+    p = np.pad(img.astype(_F32), ((1, 1), (1, 1), (0, 0)),
+               constant_values=border_value)
+    cx0, cx1 = np.clip(X, -1, ws) + 1, np.clip(X + 1, -1, ws) + 1
+    cy0, cy1 = np.clip(Y, -1, hs) + 1, np.clip(Y + 1, -1, hs) + 1
+    p00, p01, p10, p11 = p[cy0, cx0], p[cy0, cx1], p[cy1, cx0], p[cy1, cx1]
+    t0 = _fma(ax, p01 - p00, p00)
+    t1 = _fma(ax, p11 - p10, p10)
+    return np.clip(np.rint(_fma(ay, t1 - t0, t0)), 0, 255).astype(np.uint8)
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_RGB2HSV) of uint8 (..., 3), bit for bit:
+    OpenCV's integer tables sdiv[v] = round(255·4096 / v) and hdiv[d] =
+    round(180·4096 / (6 d)), H in [0, 180)."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << HSV_SHIFT) / (6.0 * i))
+    x = np.asarray(img, np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> HSV_SHIFT
+    hue = np.where(v == r, g - b,
+                   np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    hue = (hue * hdiv[diff] + half) >> HSV_SHIFT
+    hue = np.where(hue < 0, hue + 180, hue)
+    return np.stack([hue, s, v], -1).astype(np.uint8)
+
+
+# OpenCV's sector table: the tab[] index of b, g, r per hue sector
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1],
+                         [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_HSV2RGB) of uint8 (H, W, 3), bit for bit
+    with OpenCV 5.0 on AVX2: s and v times 1/255 and h times 6/180 in
+    float32, the tab of v·(1 - s), v·(1 - s·h) and v·(1 - s·(1 - h)) with
+    the inner products fused, then times 255. The columns of whole
+    32-pixel vector steps of each row take the sector by truncation and
+    truncate the result; the scalar tail takes fmod(h, 6) and floor and
+    rounds half to even."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8 or x.ndim != 3:
+        raise TypeError(f"hsv_to_rgb_u8 takes uint8 (H, W, 3): "
+                        f"{x.dtype} {x.shape}")
+    one = _F32(1)
+    s = x[..., 1].astype(_F32) * _F32(1 / 255.0)
+    v = x[..., 2].astype(_F32) * _F32(1 / 255.0)
+    hs = x[..., 0].astype(_F32) * _F32(6.0 / 180)
+    w = x.shape[1]
+    vec = np.arange(w)[None, :] < w - w % HSV_VEC
+    # vector steps: sector = trunc(h) mod 6 by truncation
+    pre = np.trunc(hs)
+    sec_v = (pre - np.trunc(pre * _F32(1 / 6.0)) * _F32(6)).astype(np.int64)
+    # scalar tail: fmod, floor, a sector out of range is 0 with h = 0
+    hm = np.fmod(hs, _F32(6)).astype(_F32)
+    sec_s = np.floor(hm).astype(np.int64)
+    frac_s = (hm - sec_s).astype(_F32)
+    bad = (sec_s < 0) | (sec_s >= 6)
+    sec_s[bad], frac_s[bad] = 0, 0
+    sector = np.where(vec, sec_v, sec_s)
+    frac = np.where(vec, (hs - pre).astype(_F32), frac_s)
+    tab = np.stack([v, v * (one - s), v * _fma(-s, frac, one),
+                    v * _fma(-s, one - frac, one)], -1)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector], -1)
+    out = bgr[..., ::-1] * _F32(255)
+    out = np.where(vec[..., None], np.trunc(out), np.rint(out))
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -4,7 +4,7 @@ save_params_npz, load_params_npz).
 
 The .npz holds the JAX model's variables flattened to dotted keys
 ('params.backbone.conv1.kernel', 'batch_stats.…'), in the JAX layout;
-convert.py maps them to and from the port's GDRN and DeepIM.
+convert.py maps them to and from the port's GDRN, DeepIM and YOLOv4.
 
 The JAX package checkpoints through orbax, which the port does not have.
 CheckpointManager writes its own step directories <dir>/<step>/ instead:
@@ -33,6 +33,7 @@ from .. import convert
 from ..convert import _flatten
 from ..models.deepim import DeepIM
 from ..models.gdrn import GDRN
+from ..models.yolo import YOLOv4
 from .train_state import TrainState
 
 MARKER = "PORT_STEP"
@@ -40,20 +41,23 @@ FORMAT = "self6dpp_tpu_torch/1"
 
 
 def _to_flax(model: nn.Module) -> dict:
-    """The model's variables in the JAX layout: a GDRN's or a DeepIM's
-    through convert.py; any other module's state_dict under 'params' as
-    it is (the layout of a JAX parameter tree with the same names)."""
+    """The model's variables in the JAX layout: a GDRN's, a DeepIM's or a
+    YOLOv4's through convert.py; any other module's state_dict under
+    'params' as it is (the layout of a JAX parameter tree with the same
+    names)."""
     if isinstance(model, DeepIM):
         return convert.state_dict_to_flax(model)
     if isinstance(model, GDRN):
         return convert.gdrn_state_dict_to_flax(model)
+    if isinstance(model, YOLOv4):
+        return convert.yolo_state_dict_to_flax(model)
     return {"params": {k: v.detach().cpu().numpy()
                        for k, v in model.state_dict().items()}}
 
 
 def _from_flat(flat: dict[str, np.ndarray], model: nn.Module) -> dict:
     """The model's state_dict from flat JAX-layout variables."""
-    if not isinstance(model, (DeepIM, GDRN)):
+    if not isinstance(model, (DeepIM, GDRN, YOLOv4)):
         return {k.partition(".")[2]: torch.as_tensor(v)
                 for k, v in flat.items()}
     tree: dict = {}
@@ -63,9 +67,11 @@ def _from_flat(flat: dict[str, np.ndarray], model: nn.Module) -> dict:
         for p in path_:
             node = node.setdefault(p, {})
         node[leaf] = v
-    return convert.flax_to_state_dict(tree, model) \
-        if isinstance(model, DeepIM) \
-        else convert.gdrn_flax_to_state_dict(tree, model)
+    if isinstance(model, DeepIM):
+        return convert.flax_to_state_dict(tree, model)
+    if isinstance(model, YOLOv4):
+        return convert.yolo_flax_to_state_dict(tree, model)
+    return convert.gdrn_flax_to_state_dict(tree, model)
 
 
 def save_params_npz(path: str, model: nn.Module) -> None:

@@ -37,24 +37,28 @@ def gn_groups(num_gn_groups: int, channels: int) -> int:
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d whose training mode is Flax's nn.BatchNorm(momentum=0.9),
-    as the JAX package trains: batch statistics in float32 with the
-    variance as E[x²] - E[x]² clipped at 0, x normalised with them, and the
-    running statistics updated in place as 0.9 r + 0.1 s with the biased
-    variance (torch's BatchNorm2d takes the unbiased one, n/(n-1) away:
-    1 + 6.5e-4 at batch 24 and stride 32). Eval mode is torch's. Same
-    state_dict as nn.BatchNorm2d."""
+    """BatchNorm2d whose training mode is Flax's nn.BatchNorm(momentum=m),
+    as the JAX package trains: batch statistics in float32 (float64 for a
+    float64 input) with the variance as E[x²] - E[x]² clipped at 0, x
+    normalised with them, and the running statistics updated in place as
+    m r + (1 - m) s with the biased variance (torch's BatchNorm2d takes the
+    unbiased one, n/(n-1) away: 1 + 6.5e-4 at batch 24 and stride 32).
+    flax_momentum is Flax's m: 0.9 for GDRN and FlowNetS, 0.97 (eps 1e-3)
+    for YOLOv4. Eval mode is torch's. Same state_dict as nn.BatchNorm2d."""
 
-    FLAX_MOMENTUM = 0.9
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 flax_momentum: float = 0.9):
+        super().__init__(num_features, eps=eps)
+        self.flax_momentum = flax_momentum
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean((0, 2, 3))
         var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
-            m = self.FLAX_MOMENTUM
+            m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
             self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
             self.num_batches_tracked.add_(1)
