@@ -29,7 +29,11 @@
     width, the loader in train mode, checkpoints, resume, warm start;
   * the YOLOv4 detector (train_yolov4.sh) at lm_base's detector widths:
     training, resume, --eval-only with its detections json, and the GDRN
-    eval CLI reading that json.
+    eval CLI reading that json;
+  * the slice of every shipped config on its own data: JPEG decoding (the
+    *_pbr sets' frames), the textured stage-II step at ycbv_ss (YCB-V's
+    atlases, the UVs through B1 and B2), tools/gen_pseudo_poses with the
+    DeepIM refiner, and the CLIs' --dist-* flags.
 
     python3 chip_smoke.py [--record FILE]
 
@@ -139,7 +143,27 @@ exits non-zero):
      iteration once, no kernel launched by the detector; ms per
      iteration, images/s, the loader's share, the step's CUDA-event phases
      (forward, loss, backward, solver), peak memory, inference ms per
-     image, NMS ms, the AP table and its seconds.
+     image, NMS ms, the AP table and its seconds;
+ 23. decode the committed JPEG fixture (a 480x640 4:2:0 frame at quality
+     95 and a 237x317 4:2:2 file with restart markers) through the host C
+     decoder built here, colour and gray, bit for bit against cv2's decode
+     stored beside it; the frame's decode timed (median of 20);
+ 24. run the textured stage-II pose step at ycbv_ss (resnest50d, 256² ->
+     64², 21 classes, 8 ROIs, 5120-face icospheres with spherical UVs, one
+     2048² RGB atlas a class, lm_ss's loss family with LAB 0.2): B1 and B2
+     at D = 2 (the UVs) and B3 against their plain versions on one step's
+     inputs, the fp32 steps through the kernels and the plain versions
+     (phase 6's checks), then bf16 steps timed per phase with one B1, B2
+     and B3 launch each, and peak memory;
+ 25. run tools/gen_pseudo_poses on the synthetic set at phase 19's
+     checkpoint with --deepim-config lm_flownet (weights of unit gain, in
+     a port step directory), float32, through the kernels and the plain
+     versions: the same records, poses within phase 3's tolerance, the
+     refiner moving them, B1 launched 4 times a batch at 512²; B1 held at
+     its first refine inputs;
+ 26. run train_gdrn at lm_base for one iteration with --dist-coordinator,
+     --dist-nprocs 1 and --dist-rank 0 and without them: the same losses,
+     no process group joined.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -703,13 +727,15 @@ def stage2_inputs(cfg, state, batch, lpips):
     """One forward and backward of the stage-II step at `state` (which it
     leaves as it was): the face table and candidates of the student's pose,
     the cotangents the losses send to the render's prob, depth and attr
-    (zero where no loss reads one), and LAB's inputs (masked render, masked
-    image, pseudo mask)."""
+    (zero where no loss reads one; a textured render's attributes are its
+    UVs), and LAB's inputs (masked render, masked image, pseudo mask)."""
     from self6dpp_tpu_torch.engine import self_engine as se
     from self6dpp_tpu_torch.engine.gdrn_engine import model_inputs
     from self6dpp_tpu_torch.ops import rasterizer as R
     ld, ren, pseudo = se.forward_losses(cfg, state, batch, lpips=lpips)
-    outs = [ren["prob"], ren["depth"], ren["color"]]
+    # a textured render's attributes are its UVs (phase 24)
+    textured = "uv" in ren
+    outs = [ren["prob"], ren["depth"], ren["uv" if textured else "color"]]
     grads = torch.autograd.grad(sum(ld.values()), outs, allow_unused=True)
     cts = [torch.zeros_like(o) if g is None else g.contiguous()
            for o, g in zip(outs, grads)]
@@ -719,8 +745,9 @@ def stage2_inputs(cfg, state, batch, lpips):
     s, r = cfg.model.input_res, cfg.renderer
     ftab, cand = R.raster_inputs(
         batch["mesh_verts"][cls], batch["mesh_faces"][cls],
-        batch["mesh_colors"][cls], batch["roi_zoom_K"], out["rot"].float(),
-        out["trans"].float(), s, s, r.tile_px, r.faces_per_tile)
+        batch["mesh_uv" if textured else "mesh_colors"][cls],
+        batch["roi_zoom_K"], out["rot"].float(), out["trans"].float(), s, s,
+        r.tile_px, r.faces_per_tile)
     vis = pseudo["vis_mask"].contiguous()
     lab = ((ren["color"].detach() * vis[..., None]).contiguous(),
            (batch["roi_img"] * vis[..., None]).contiguous(), vis)
@@ -1082,14 +1109,16 @@ def restore(state, snap) -> None:
 
 
 def run_steps(cfg, device, batch_size, n, impl="kernel", built=None,
-              refiner=None, starts=None):
-    """n stage-II steps from the seeded weights (`built`, build_stage2's
-    result for cfg, or a new one), with the DeepIM refiner `refiner` when
+              refiner=None, starts=None, build=None):
+    """n stage-II steps from the seeded weights (`built`, build(cfg,
+    batch_size, device, seed=SEED)'s result, build defaulting to
+    build_stage2, or a new one), with the DeepIM refiner `refiner` when
     given; step i starts from the snapshot starts[i] where `starts` has one,
     else from where step i - 1 left: (initial params, metrics per step,
     params after each step, snapshot after each step)."""
     from self6dpp_tpu_torch.engine import self_engine as se
-    model, state, batch, lpips = built or se.build_stage2(
+    build = build or se.build_stage2
+    model, state, batch, lpips = built or build(
         cfg, batch_size, device, seed=SEED)
     init = params_of(model)
     step = se.make_self_train_step(cfg, model, lpips, impl=impl,
@@ -1117,7 +1146,8 @@ def loss_err(a, b):
     return max(abs(a[k] - b[k]) / max(abs(b[k]), floor) for k in a)
 
 
-def check_stage2_fp32(cfg32, device, batch_size, built, refiner=None):
+def check_stage2_fp32(cfg32, device, batch_size, built, refiner=None,
+                      build=None):
     """Phase 6: float32 steps through the kernels (on `built`, the untouched
     build_stage2 result phase 5 read its inputs from) and through the plain
     versions, from the same weights and batch (and the refiner, when
@@ -1135,22 +1165,24 @@ def check_stage2_fp32(cfg32, device, batch_size, built, refiner=None):
     has no bearing on the kernels. The check can fail: the parameters
     moved more than S2_MOVED x TOL_S2_PARAMS, and two steps with every loss
     that reads the render at weight 0 (S2_RENDER_LOSSES) end more than
-    TOL_S2_PARAMS away."""
+    TOL_S2_PARAMS away. build: the builder of `built` (build_stage2 by
+    default; phase 24's textured_stage2)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         init, mk, pk, _ = run_steps(cfg32, device, batch_size, 2, "kernel",
-                                    built, refiner)
+                                    built, refiner, build=build)
         _, mp, pp, sp = run_steps(cfg32, device, batch_size, 2, "plain",
-                                  refiner=refiner)
+                                  refiner=refiner, build=build)
         _, mk2, pk2, _ = run_steps(cfg32, device, batch_size, 1, "kernel",
-                                   refiner=refiner, starts={0: sp[0]})
+                                   refiner=refiner, starts={0: sp[0]},
+                                   build=build)
         ctrl = dataclasses.replace(cfg32, self_sup=dataclasses.replace(
             cfg32.self_sup, **{k: 0.0 for k in S2_RENDER_LOSSES}))
         _, mc, pc, _ = run_steps(ctrl, device, batch_size, 2, "kernel",
-                                 refiner=refiner)
+                                 refiner=refiner, build=build)
     finally:
         torch.backends.cudnn.deterministic = det
     for m in mk + mk2:
@@ -3289,6 +3321,326 @@ def run_detector(root, device):
                               "avg": g["tables"].get("avg", {})}}
 
 
+# ------------------------------------------------- slice 11 (phases 23-26)
+JPEG_DIR = os.path.join(HERE, "self6dpp_tpu_torch", "fixtures", "jpeg")
+JPEG_FIXTURES = ("frame_420_q95", "odd_422_rst")
+JPEG_READS = 20                   # phase 23: median of 20 decodes
+YCBV_SUBDIV = 4                   # phase 24: 5120-face icospheres
+ATLAS_SIDE = 2048                 # YCB-V's atlas: one 2048² RGB a class
+ATLAS_CELLS = 64                  # the atlas's seeded field, upsampled
+S5_TIMED_STEPS = 10               # phase 24: timed bf16 textured steps
+DEEPIM_ZOOM = 512                 # phase 25: lm_flownet's refine renders
+TOL_DIST_FLAGS = 1e-6             # phase 26: loss with and without the flags
+
+
+def check_jpeg():
+    """Phase 23: the committed fixture (self6dpp_tpu_torch/fixtures/jpeg: a
+    480x640 4:2:0 frame at quality 95, a 237x317 4:2:2 file with restart
+    markers) through imread on this machine's build of csrc/jpeg_decode.c,
+    colour and gray, bit for bit against cv2's decode stored beside it;
+    each imread('color') timed on the host, median of JPEG_READS after one
+    untimed read."""
+    from self6dpp_tpu_torch.data.image_io import imread
+    ref = np.load(os.path.join(JPEG_DIR, "decoded.npz"))
+    out = {"reads": JPEG_READS}
+    for name in JPEG_FIXTURES:
+        path = os.path.join(JPEG_DIR, f"{name}.jpg")
+        rgb, gray = imread(path, "color"), imread(path, "gray")
+        require(np.array_equal(rgb, ref[f"{name}_rgb"])
+                and np.array_equal(gray, ref[f"{name}_gray"]),
+                "JPEG decode not bit for bit", name, int(np.abs(
+                    rgb.astype(int) - ref[f"{name}_rgb"]).max()))
+        ts = []
+        for _ in range(JPEG_READS + 1):
+            t0 = time.perf_counter()
+            imread(path, "color")
+            ts.append(time.perf_counter() - t0)
+        out[name] = {"hw": list(rgb.shape[:2]),
+                     "bytes": os.path.getsize(path),
+                     "ms": float(np.median(ts[1:]) * 1e3)}
+    return out
+
+
+def ycbv_cfg(dtype_name, lr=None):
+    """configs/self6dpp/ycbv_ss.py's Config (resnest50d, 256² -> 64², 21
+    classes, lm_ss's loss family with LAB 0.2, Ranger, 8 ROIs) in the given
+    compute dtype; with lr, no warm-up and that learning rate."""
+    from self6dpp_tpu_torch.config import self6dpp_ycbv_ss
+    return stage2_cfg(dtype_name, lr=lr, base=self6dpp_ycbv_ss())
+
+
+def textured_stage2(cfg, batch_size, device, seed=SEED):
+    """build_stage2 with YCB-V-shaped textured models: every class a
+    5120-face icosphere of radius 0.06 with spherical UVs (mesh_uv) and one
+    ATLAS_SIDE² RGB atlas (mesh_texture), a seeded ATLAS_CELLS² field
+    upsampled bilinearly; the heads aimed (aim_heads_) before the teacher
+    and the solver copy them. Returns (model, state, batch, lpips)."""
+    import torch.nn.functional as Fnn
+    from self6dpp_tpu_torch.data.meshes import make_icosphere
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.engine.gdrn_engine import build_gdrn, init_state
+    from self6dpp_tpu_torch.models.lpips import build_lpips
+    v, f = make_icosphere(0.06, YCBV_SUBDIV)
+    model = build_gdrn(cfg, device=device, seed=seed)
+    batch = se.stage2_batch(cfg, batch_size, device, seed=seed, mesh=(v, f))
+    n = v / np.linalg.norm(v, axis=1, keepdims=True)
+    uv = np.stack([0.5 + np.arctan2(n[:, 2], n[:, 0]) / (2 * np.pi),
+                   0.5 + np.arcsin(np.clip(n[:, 1], -1, 1)) / np.pi], 1)
+    C = cfg.model.num_classes
+    batch["mesh_uv"] = torch.as_tensor(uv, dtype=torch.float32,
+                                       device=device).expand(C, -1, -1)
+    g = torch.Generator().manual_seed(seed + 24)
+    field = torch.rand((C, 3, ATLAS_CELLS, ATLAS_CELLS), generator=g)
+    batch["mesh_texture"] = Fnn.interpolate(
+        field.to(device), size=(ATLAS_SIDE, ATLAS_SIDE), mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1).contiguous()
+    se.aim_heads_(model, batch)
+    return model, init_state(cfg, model), batch, build_lpips(device,
+                                                             seed + 1)
+
+
+def run_textured_stage2(device, cand_checks):
+    """Phase 24: the textured stage-II pose step at ycbv_ss (ycbv_cfg,
+    textured_stage2: 21 classes, 8 ROIs, 5120-face meshes, 2048² atlases):
+      a. on one float32 step's inputs, B1 (the UVs, D = 2, with the soft
+         silhouette and its saved keep), B2 on the cotangents the losses
+         send to prob, depth and the UVs (through the atlas's bilinear
+         sample) and on random ones, and B3 against their plain versions
+         with phase 5's tolerances, timed, with their bounds;
+      b. phase 6's fp32 checks (check_stage2_fp32 on textured builds);
+      c. one bf16 warm-up step held against the fp32 step's losses
+         (TOL_S2_BF16), then S5_TIMED_STEPS timed steps (time_stage2's
+         CUDA-event spans), the launch counts of B1, B2 and B3 set to 0
+         just before and read just after (one each a step), peak memory."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.ops import raster_cuda as RC
+    cfg, cfg32 = ycbv_cfg("bfloat16"), ycbv_cfg("float32", lr=S2_LR)
+    built = textured_stage2(cfg32, S2_BATCH, device)
+    with cand_order_checked(cand_checks):
+        inputs = stage2_inputs(cfg32, *built[1:])
+        D = (inputs[0].shape[-1] - RC._GEO) // 3
+        require(D == 2, "textured render: attribute channels", D)
+        k24 = check_stage2_kernels(cfg32, inputs)
+        del inputs
+        ref32, fp32 = check_stage2_fp32(cfg32, device, S2_BATCH, built,
+                                        build=textured_stage2)
+    del built
+    model, state, batch, lpips = textured_stage2(cfg, S2_BATCH, device)
+    atlas_gib = batch["mesh_texture"].numel() * 4 / 2 ** 30
+    step = se.make_self_train_step(cfg, model, lpips)
+    state, warm = step(state, batch)
+    torch.cuda.synchronize()
+    warm = {k: float(v) for k, v in warm.items()}
+    bf16_err = loss_err(warm, ref32)
+    require(bf16_err <= TOL_S2_BF16, "textured bf16 vs fp32 losses", warm,
+            ref32)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with scatter_counted() as scatters:
+        times, phases, metrics = timed_steps(step, state, batch,
+                                             S5_TIMED_STEPS)
+    launches = kernel_launches()
+    require(scatters["n"] == 0, "the textured step's B2 ran the scatter")
+    for name, k in launches.items():
+        require(k == S2_LAUNCHES[name] * S5_TIMED_STEPS,
+                "textured launches per step", name, k)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                "textured: non-finite loss", m)
+    require({"loss_color_ab_obj", "loss_percep_obj", "loss_ms_ssim",
+             "loss_mask_self"} <= set(metrics[-1]), "ycbv_ss loss terms",
+            sorted(metrics[-1]))
+    timed = {**summary(times, phases), "config": cfg.exp_name,
+             "batch": S2_BATCH, "classes": cfg.model.num_classes,
+             "faces": int(batch["mesh_faces"].shape[1]),
+             "atlas": [ATLAS_SIDE, ATLAS_SIDE, 3], "atlas_gib": atlas_gib,
+             "compute_dtype": cfg.dist.compute_dtype,
+             "tile_px": cfg.renderer.tile_px,
+             "faces_per_tile": cfg.renderer.faces_per_tile,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": launches, "bf16_vs_fp32_loss_rel_err": bf16_err,
+             "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    return k24, {"fp32": fp32, "timed": timed}
+
+
+def textured_kernel_lines(k24, timed):
+    """The `kernels` entries of phase 24: B1 and B2 at D = 2 and B3 at
+    ycbv_ss's step, the launches of its timed bf16 run."""
+    rows = []
+    for name, src, replaces, key, err in (
+            ("fine_raster_fwd[ycbv_ss_textured]", "fine_raster_fwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:420", "B1",
+             max(k24["B1"]["max_abs_err"].values())),
+            ("fine_raster_bwd[ycbv_ss_textured]", "fine_raster_bwd.cu",
+             "self6dpp_tpu/ops/raster_pallas.py:459", "B2",
+             k24["B2"]["loss"]["rel_err"] * k24["B2"]["loss"]["max_abs"]),
+            ("lab_value_grad[ycbv_ss]", "lab_value_grad.cu",
+             "self6dpp_tpu/ops/lab_pallas.py:171", "B3",
+             k24["B3"]["scaled_max_abs_err"])):
+        d = k24[key]
+        count = {"B1": "fine_raster_fwd", "B2": "fine_raster_bwd",
+                 "B3": "lab_value_grad"}[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"self6dpp_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": timed["launches"][count], "max_abs_err": err,
+            "ms": d["ms"], "graph_ms": d["graph_ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None})
+    return rows
+
+
+@contextlib.contextmanager
+def deepim_config_float32():
+    """While active, the port's load_config gives lm_flownet in float32
+    (gen_pseudo_poses applies no --opts to --deepim-config)."""
+    from self6dpp_tpu_torch import config as C
+    load = C.load_config
+
+    def fp32(path):
+        cfg = load(path)
+        if path.endswith("configs/deepim/lm_flownet.py"):
+            cfg = dataclasses.replace(cfg, dist=dataclasses.replace(
+                cfg.dist, compute_dtype="float32"))
+        return cfg
+    C.load_config = fp32
+    try:
+        yield
+    finally:
+        C.load_config = load
+
+
+def run_gen_pseudo_poses(root, ckpt, device):
+    """Phase 25: tools/gen_pseudo_poses on the synthetic set's test split
+    with its GT-box detections, --config lm_base (2 classes, float32) at
+    phase 19's checkpoint (as phase 21 aimed it), --deepim-config
+    lm_flownet (FlowNetS, 512² zoom, 4 iterations, float32) at a port step
+    directory of weights of unit gain (unit_gain_: the refined pose
+    depends on the render), TF32 off and cuDNN deterministic, once through
+    the kernels and once through the plain versions: the same records,
+    boxes, scores and pose_est, pose_refine within TOL_PATH (phase 3's),
+    the refiner moved the poses by more than TOL_PATH, n_iter_test B1
+    launches at 512² a batch; wall seconds; B1 held at its first 512²
+    inputs (b1_at)."""
+    import shutil
+    from self6dpp_tpu_torch.config import gdrn_lm_base, lm_flownet
+    from self6dpp_tpu_torch.engine import deepim_engine as de
+    from self6dpp_tpu_torch.engine.checkpoint import CheckpointManager
+    from self6dpp_tpu_torch.tools import gen_pseudo_poses
+    out = os.path.join(TRAIN_DIR, "pseudo")
+    shutil.rmtree(out, ignore_errors=True)
+    dcfg = lm_flownet()
+    dmodel = de.build_deepim(dcfg, device, train=True)
+    with torch.no_grad():
+        unit_gain_(dmodel, SEED)
+    dckpt = os.path.join(out, "deepim_ckpt")
+    CheckpointManager(dckpt).save(de.init_state(dcfg, dmodel), step=1,
+                                  force=True)
+    del dmodel
+    argv = ["--config", "configs/gdrn/lm_base.py", "--gdrn-ckpt", ckpt,
+            "--det-file", os.path.join(root, "lm", "gt_dets.json"),
+            "--deepim-config", "configs/deepim/lm_flownet.py",
+            "--deepim-ckpt", dckpt, "--opts", f"data.dataset_root={root}",
+            "data.test_datasets=synthetic", "model.num_classes=2",
+            "dist.compute_dtype=float32"]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        with deepim_config_float32():
+            for impl in ("kernel", "plain"):
+                runs[impl] = run_cli(
+                    gen_pseudo_poses.main, argv + [
+                        "--out", os.path.join(out, f"pseudo_{impl}.json")],
+                    device, impl, deterministic=True, heights=(DEEPIM_ZOOM,))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    (rk, lk, bk, seen, wk), (rp, _, bp, _, wp) = runs["kernel"], runs["plain"]
+    dk, dp = rk["dets"], rp["dets"]
+    require(list(dk) == list(dp) and rk["n_rois"] == rp["n_rois"] > 0,
+            "gen_pseudo_poses records", rk["n_rois"], rp["n_rois"])
+    est_err = refine_err = moved = 0.0
+    for key in dk:
+        for a, b in zip(dk[key], dp[key], strict=True):
+            require((a["obj_id"], a["bbox_est"], a["score"])
+                    == (b["obj_id"], b["bbox_est"], b["score"]),
+                    "gen_pseudo_poses entries", key)
+            est_err = max(est_err, float(np.abs(np.subtract(
+                a["pose_est"], b["pose_est"])).max()))
+            refine_err = max(refine_err, float(np.abs(np.subtract(
+                a["pose_refine"], b["pose_refine"])).max()))
+            moved = max(moved, float(np.abs(np.subtract(
+                a["pose_refine"], a["pose_est"])).max()))
+    n_batches = -(-rk["n_rois"] // gdrn_lm_base().solver.ims_per_batch)
+    n_iter = lm_flownet().deepim.n_iter_test
+    require(est_err <= TOL_PATH and refine_err <= TOL_PATH,
+            "gen_pseudo_poses kernel vs plain", est_err, refine_err)
+    require(moved > TOL_PATH, "gen_pseudo_poses: the refiner left the "
+            "poses where they were", moved)
+    require(bk["fine_raster_fwd"].get(DEEPIM_ZOOM) == n_iter * n_batches
+            and DEEPIM_ZOOM not in bp["fine_raster_fwd"],
+            "gen_pseudo_poses B1 launches", bk, bp)
+    b1 = b1_at(seen[DEEPIM_ZOOM], "gen_pseudo_poses refine B1")
+    return b1, {"rois": rk["n_rois"], "batches": n_batches,
+                "refine_iterations": n_iter, "wall_s_kernel": wk,
+                "wall_s_plain": wp, "launches": lk,
+                "b1_launches_by_height": bk["fine_raster_fwd"],
+                "pose_est_kernel_vs_plain_max_abs": est_err,
+                "pose_refine_kernel_vs_plain_max_abs": refine_err,
+                "refine_moved_max_abs": moved}
+
+
+def gen_pseudo_kernel_line(b1, pseudo):
+    """B1 (i): the refine renders of gen_pseudo_poses (phase 25)."""
+    return b1_row("fine_raster_fwd[gen_pseudo_poses]", b1,
+                  pseudo["b1_launches_by_height"][DEEPIM_ZOOM])
+
+
+def run_dist_flags(root, device):
+    """Phase 26: train_gdrn at lm_base (2 classes, float32, TF32 off, cuDNN
+    deterministic) for one iteration with --dist-coordinator localhost:PORT
+    --dist-nprocs 1 --dist-rank 0 and once without the flags: the flags
+    are taken, one process joins no group (as the JAX CLI's), and the
+    iteration's losses agree within TOL_DIST_FLAGS. One card cannot hold
+    two NCCL ranks: the two-rank path is held on the CPU
+    (tests/test_torch_dist.py, gloo)."""
+    import socket
+    from self6dpp_tpu_torch.parallel import dist
+    from self6dpp_tpu_torch.tools import train_gdrn
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    flags = ["--dist-coordinator", f"localhost:{port}", "--dist-nprocs",
+             "1", "--dist-rank", "0"]
+    losses, walls = {}, {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, extra in (("flags", flags), ("plain", [])):
+            argv = ["--config", "configs/gdrn/lm_base.py"] + extra + \
+                syn_opts(root, os.path.join(TRAIN_DIR, f"dist_{name}"),
+                         "solver.total_iters=1", "ckpt_period=0",
+                         "dist.compute_dtype=float32")
+            res, _, _, _, walls[name] = run_cli(train_gdrn.main, argv, device,
+                                                deterministic=True)
+            rows = read_metrics(res["metrics"])
+            check_finite_losses(rows, f"train_gdrn {name}", 1)
+            losses[name] = loss_rows(rows)[-1]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    require(dist.world_size() == 1, "--dist-nprocs 1 joined a group")
+    err = loss_err(losses["flags"], losses["plain"])
+    require(err <= TOL_DIST_FLAGS, "train_gdrn with --dist-* flags", losses)
+    return {"loss_rel_err": err, "losses": losses, "wall_s": walls,
+            "world_size": dist.world_size()}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3523,6 +3875,25 @@ def main(record_path: str = "") -> int:
     yolo = run_detector(syn_root, device)
     print(f"train_yolov4: {json.dumps(yolo)}", flush=True)
     clock["yolov4_phase22_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jpeg = check_jpeg()
+    print(f"JPEG decode: {json.dumps(jpeg)}", flush=True)
+    clock["jpeg_phase23_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k24, textured = run_textured_stage2(device, cand_checks)
+    print(f"ycbv_ss textured kernels vs plain: {json.dumps(k24)}", flush=True)
+    print(f"ycbv_ss textured steps: {json.dumps(textured)}", flush=True)
+    clock["textured_phase24_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b1_pseudo, pseudo = run_gen_pseudo_poses(syn_root, ckpt19, device)
+    print(f"gen_pseudo_poses: {json.dumps(pseudo)}", flush=True)
+    print(f"gen_pseudo_poses B1 vs plain: {json.dumps(b1_pseudo)}",
+          flush=True)
+    clock["gen_pseudo_poses_phase25_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist_flags = run_dist_flags(syn_root, device)
+    print(f"train_gdrn --dist-*: {json.dumps(dist_flags)}", flush=True)
+    clock["dist_flags_phase26_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -3543,7 +3914,10 @@ def main(record_path: str = "") -> int:
               "train_gdrn": gdrn_train, "train_label_cache_b1": b1_train_label,
               "train_deepim": deepim_train, "train_self6dpp": self_train,
               "lm_ss_kernels": k21, "yolov4_card_vs_cpu": yolo_cpu,
-              "train_yolov4": yolo, "clock": clock,
+              "train_yolov4": yolo, "jpeg_decode": jpeg,
+              "ycbv_ss_textured_kernels": k24, "ycbv_ss_textured": textured,
+              "gen_pseudo_poses": pseudo, "gen_pseudo_poses_b1": b1_pseudo,
+              "dist_flags": dist_flags, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3574,6 +3948,8 @@ def main(record_path: str = "") -> int:
     kernels += train_kernel_lines(
         k21, self_train["timed"], b1_train_label,
         gdrn_train["b1_launches_by_height"][LABEL_RES])
+    kernels += textured_kernel_lines(k24, textured["timed"])
+    kernels.append(gen_pseudo_kernel_line(b1_pseudo, pseudo))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
@@ -3651,6 +4027,18 @@ def main(record_path: str = "") -> int:
                                    k: png[k]["ms"] for k in (
                                        "rgb_paeth", "rgb", "mask",
                                        "depth16")},
+                               "jpeg_decode_ms": {
+                                   k: jpeg[k]["ms"] for k in JPEG_FIXTURES},
+                               "ycbv_ss_textured_step": {
+                                   k: textured["timed"][k] for k in (
+                                       "config", "batch", "classes",
+                                       "faces", "atlas", "compute_dtype",
+                                       "ms_per_step", "phase_ms_median",
+                                       "launches", "peak_mem_gib")},
+                               "gen_pseudo_poses": {
+                                   k: pseudo[k] for k in (
+                                       "rois", "batches", "wall_s_kernel",
+                                       "b1_launches_by_height")},
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

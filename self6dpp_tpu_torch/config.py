@@ -567,15 +567,112 @@ def deepim_synthetic_refiner() -> Config:
         renderer=RendererConfig(tile_px=16, faces_per_tile=64))
 
 
+def lm_masknormvf() -> Config:
+    """GDRN_MaskNormVF stage I for LINEMOD (configs/gdrn/lm_masknormvf.py,
+    on gdrn_lm_base): visib + full masks, 16-point vector fields and
+    normals, ConvPnPNetMaskNormVF, the vf and norm terms at weight 1."""
+    b = gdrn_lm_base()
+    m = b.model
+    return dataclasses.replace(
+        b, exp_name="gdrn_lm_masknormvf",
+        model=dataclasses.replace(
+            m,
+            geo_head=dataclasses.replace(m.geo_head, num_masks=2,
+                                         with_vf=True, with_norm=True,
+                                         num_vf_points=16),
+            pnp_net=dataclasses.replace(m.pnp_net,
+                                        name="ConvPnPNetMaskNormVF"),
+            loss=dataclasses.replace(m.loss, vf_lw=1.0, norm_lw=1.0)))
+
+
+def lm_objects() -> Config:
+    """One GDR-Net per LINEMOD object (configs/gdrn/lm_objects.py, on
+    gdrn_lm_base): data.object_filter picks it, ape by default (--opts
+    data.object_filter=can exp_name=gdrn_lm_can for another)."""
+    b = gdrn_lm_base()
+    return dataclasses.replace(
+        b, exp_name="gdrn_lm_siso",
+        data=dataclasses.replace(b.data, object_filter=("ape",)))
+
+
+def gdrn_hb_base() -> Config:
+    """Stage I for HomebrewedDB (configs/gdrn/hb_base.py, on gdrn_lm_base):
+    33 classes, trained on hb_pbr (JPEG frames), tested on hb."""
+    b = gdrn_lm_base()
+    return dataclasses.replace(
+        b, exp_name="gdrn_hb_base",
+        model=dataclasses.replace(b.model, num_classes=33),
+        data=DataConfig(
+            train_datasets=("hb_pbr",), test_datasets=("hb",),
+            dzi=DZIConfig(type="uniform", pad_scale=1.5, scale_ratio=0.25,
+                          shift_ratio=0.25),
+            color_aug_prob=0.8, bg_replace_prob=0.5))
+
+
+def gdrn_ycbv_base() -> Config:
+    """Stage I for YCB-V (configs/gdrn/ycbv_base.py, on gdrn_lm_base): 21
+    classes, visib + full masks (the full mask's loss at weight 1), the
+    symmetric PM loss; trained on ycbv_pbr (JPEG frames), tested on ycbv,
+    instances under 10 % visible left out."""
+    b = gdrn_lm_base()
+    m = b.model
+    return dataclasses.replace(
+        b, exp_name="gdrn_ycbv_base",
+        model=dataclasses.replace(
+            m, num_classes=21,
+            geo_head=dataclasses.replace(m.geo_head, num_masks=2),
+            loss=dataclasses.replace(m.loss, pm_loss_sym=True,
+                                     full_mask_lw=1.0)),
+        data=dataclasses.replace(
+            b.data, train_datasets=("ycbv_pbr",), test_datasets=("ycbv",),
+            filter_visib_thr=0.1,
+            dzi=DZIConfig(type="uniform", pad_scale=1.5, scale_ratio=0.25,
+                          shift_ratio=0.25)))
+
+
+def self6dpp_hb_ss() -> Config:
+    """Stage II for HomebrewedDB (configs/self6dpp/hb_ss.py, on
+    gdrn_hb_base): lm_ss's solver and loss family (RW_BCE mask with edge
+    weights, LPIPS 0.15, MS-SSIM 1, LAB 0.2, pseudo PM 10; EMA teacher at
+    0.999), the geo mode off by SelfSupConfig's default."""
+    return dataclasses.replace(
+        gdrn_hb_base(), exp_name="self6dpp_hb_ss",
+        solver=SolverConfig(
+            optimizer="ranger", base_lr=2e-5, anneal_method="cosine",
+            anneal_point=0.72, total_iters=3000, ims_per_batch=8,
+            reference_bs=8, grad_clip_norm=35.0, ema_decay=0.999),
+        self_sup=SelfSupConfig(
+            enabled=True, mask_lw=1.0, mask_loss_type="RW_BCE",
+            mask_edge_reweight=True, perceptual_lw=0.15, ms_ssim_lw=1.0,
+            lab_lw=0.2, pseudo_pm_lw=10.0, ema_teacher=True,
+            ema_decay=0.999))
+
+
+def self6dpp_ycbv_ss() -> Config:
+    """Stage II for YCB-V (configs/self6dpp/ycbv_ss.py, on gdrn_ycbv_base)
+    with self6dpp_lm_ss's solver and loss family. YCB-V's models are
+    textured: the student render rasterises their UVs and samples the
+    atlas (engine/self_engine.py::render_student_pose)."""
+    ss = self6dpp_lm_ss()
+    return dataclasses.replace(gdrn_ycbv_base(), exp_name="self6dpp_ycbv_ss",
+                               solver=ss.solver, self_sup=ss.self_sup)
+
+
 # the repo's config files (which import the JAX package) -> the port's
 # functions that build the same Config
 CONFIGS = {
     "configs/gdrn/lm_base.py": gdrn_lm_base,
+    "configs/gdrn/lm_masknormvf.py": lm_masknormvf,
+    "configs/gdrn/lm_objects.py": lm_objects,
+    "configs/gdrn/hb_base.py": gdrn_hb_base,
+    "configs/gdrn/ycbv_base.py": gdrn_ycbv_base,
     "configs/gdrn/synthetic_smoke.py": gdrn_synthetic_smoke,
     "configs/deepim/lm_flownet.py": lm_flownet,
     "configs/deepim/synthetic_smoke.py": deepim_synthetic_smoke,
     "configs/deepim/synthetic_refiner.py": deepim_synthetic_refiner,
     "configs/self6dpp/lm_ss.py": self6dpp_lm_ss,
+    "configs/self6dpp/hb_ss.py": self6dpp_hb_ss,
+    "configs/self6dpp/ycbv_ss.py": self6dpp_ycbv_ss,
     "configs/self6dpp/synthetic_smoke.py": self6dpp_synthetic_smoke,
 }
 

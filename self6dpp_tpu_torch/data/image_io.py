@@ -1,13 +1,22 @@
-"""PNG reading and writing on the standard library's zlib and numpy, in
-place of cv2.imread / cv2.imwrite (the JAX package's data path).
+"""PNG and JPEG reading, and PNG writing, on the standard library's zlib,
+numpy and two host routines in C, in place of cv2.imread / cv2.imwrite (the
+JAX package's data path). imread picks the format by the file's first
+bytes, not by its extension.
 
 Reads 8-bit gray, 8-bit RGB and RGBA (returned RGB, alpha dropped) and
 16-bit gray (depth, returned uint16), non-interlaced, undoing all five
 scanline filters. Raises, naming the file, on anything else: interlaced
-images, palettes, gray with alpha, bit depths below 8, 16-bit colour and
-files that are not PNG (JPEG among them). The filters are undone by a
-host routine in C (csrc/png_unfilter.c), built at first use. Writes uint8
-gray or RGB and uint16 gray, choosing each row's filter as libpng does.
+images, palettes, gray with alpha, bit depths below 8 and 16-bit colour.
+The filters are undone by a host routine in C (csrc/png_unfilter.c), built
+at first use. Writes uint8 gray or RGB and uint16 gray, choosing each
+row's filter as libpng does.
+
+JPEG: baseline (sequential Huffman) files of 1 or 3 components, decoded by
+csrc/jpeg_decode.c bit for bit as libjpeg-turbo's defaults decode them
+(ISLOW IDCT, fancy upsampling, its fixed-point YCbCr tables), which is
+what cv2.imread returns. Raises, naming the file, on progressive,
+lossless, arithmetic-coded, 12-bit and CMYK files, and on an EXIF
+orientation other than 1 (cv2.imread would rotate such an image).
 
 Channel order: imread returns RGB, where cv2.imread(IMREAD_COLOR) returns
 BGR; the JAX loader flips cv2's image to RGB, so both hold the same array.
@@ -22,6 +31,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SOI = b"\xff\xd8\xff"
 # colour type -> channels (0 gray, 2 RGB, 6 RGBA)
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 
@@ -81,8 +91,7 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (JPEG and other formats "
-                         "are not read)")
+        raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -112,10 +121,66 @@ def read_png(path: str) -> np.ndarray:
         px.reshape(height, width)
 
 
+_JPEG = []
+
+
+def _jpeg_lib():
+    """csrc/jpeg_decode.c's jpeg_info and jpeg_decode, built at first use."""
+    if not _JPEG:
+        from ..kernels.build import load_host
+        lib = load_host("jpeg_decode")
+        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.jpeg_info.argtypes = (ctypes.c_char_p, i64, p, ctypes.c_char_p, i)
+        lib.jpeg_info.restype = i
+        lib.jpeg_decode.argtypes = (ctypes.c_char_p, i64, i, p,
+                                    ctypes.c_char_p, i)
+        lib.jpeg_decode.restype = i
+        _JPEG.append(lib)
+    return _JPEG[0]
+
+
+def decode_jpeg(data: bytes, gray: bool | None = False,
+                path: str = "<bytes>") -> np.ndarray:
+    """A baseline JPEG's pixels: (H, W, 3) uint8 RGB; with gray, (H, W)
+    uint8, Y of a YCbCr file (libjpeg's JCS_GRAYSCALE output); with gray
+    None, as stored (gray for a one-component file, else RGB)."""
+    lib = _jpeg_lib()
+    err = ctypes.create_string_buffer(256)
+    info = np.zeros(3, np.int32)
+    if lib.jpeg_info(data, len(data), info.ctypes.data, err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    h, w = int(info[0]), int(info[1])
+    if gray is None:
+        gray = int(info[2]) == 1
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    if lib.jpeg_decode(data, len(data), int(gray), out.ctypes.data, err,
+                       len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out
+
+
+_JPEG_GRAY = {"color": False, "gray": True, "unchanged": None}
+
+
+def read_jpeg(path: str, mode: str = "color") -> np.ndarray:
+    """imread's modes on a JPEG file; 'unchanged' is gray (H, W) for a
+    one-component file and RGB otherwise, as cv2.IMREAD_UNCHANGED reads."""
+    if mode not in _JPEG_GRAY:
+        raise ValueError(f"unknown imread mode: {mode!r}")
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read(), _JPEG_GRAY[mode], path)
+
+
 def imread(path: str, mode: str = "unchanged") -> np.ndarray:
-    """cv2.imread's modes on PNG files. 'color': (H, W, 3) uint8 RGB (gray
-    repeated to three channels, alpha dropped); 'gray': (H, W) uint8 of an
-    8-bit gray PNG; 'unchanged': as stored (read_png), alpha dropped."""
+    """cv2.imread's modes on PNG and baseline JPEG files, the format told
+    by the file's first bytes. 'color': (H, W, 3) uint8 RGB (gray repeated
+    to three channels, alpha dropped); 'gray': (H, W) uint8 of an 8-bit
+    gray PNG or of any JPEG (its Y); 'unchanged': as stored (read_png,
+    read_jpeg), alpha dropped."""
+    with open(path, "rb") as f:
+        head = f.read(len(_SIGNATURE))
+    if head.startswith(_JPEG_SOI):
+        return read_jpeg(path, mode)
     img = read_png(path)
     if mode == "unchanged":
         return img[..., :3] if img.ndim == 3 else img

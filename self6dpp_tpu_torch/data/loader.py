@@ -38,6 +38,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..ops.fps import farthest_point_sampling, xyz_to_region_batch
+from ..parallel.dist import rank, world_size
 from .aug import add_noise_depth, aug_bbox_dzi, color_aug, \
     crop_resize_by_warp_affine, get_2d_coord, replace_bg, warp_affine
 from .bop import Record
@@ -45,6 +46,7 @@ from .image_io import imread
 from .meshes import load_ply, pad_mesh
 from .ref import DatasetMeta, sym_rotations_from_info
 from .samplers import (inference_sampler, infinite_subset_random_sampler,
+                       process_shard,
                        repeat_factor_sampler,
                        repeat_factors_from_category_frequency,
                        training_sampler)
@@ -591,7 +593,10 @@ class GDRNDataset:
         def gen():
             try:
                 if infinite:
-                    stream = self._index_sampler(n)
+                    # rank r of W takes the stream's [r::W] (every rank
+                    # draws the same stream: data parallel, parallel/dist.py)
+                    stream = process_shard(self._index_sampler(n), rank(),
+                                           world_size())
                     while True:
                         yield timed([self.index[next(stream)]
                                      for _ in range(batch_size)])

@@ -34,6 +34,7 @@ from ..convert import _flatten
 from ..models.deepim import DeepIM
 from ..models.gdrn import GDRN
 from ..models.yolo import YOLOv4
+from ..parallel.dist import is_main
 from .train_state import TrainState
 
 MARKER = "PORT_STEP"
@@ -146,8 +147,11 @@ class CheckpointManager:
              force: bool = False) -> bool:
         """Write the state at `step` (default state.step) when the step is
         a multiple of save_period or force; a step already written is not
-        written again. Returns whether it wrote."""
+        written again; under data parallel only rank 0 writes (every rank
+        holds the same state). Returns whether it wrote."""
         step = state.step if step is None else int(step)
+        if not is_main():
+            return False
         if not force and (self.save_period <= 0
                           or step % self.save_period != 0):
             return False

@@ -23,6 +23,7 @@ from ..config import Config
 from ..convert import param_kinds
 from ..losses.gdrn_loss import gdrn_loss
 from ..models.gdrn import GDRN
+from ..parallel.dist import average_gradients
 from .optim import build_optimizer
 from .train_state import TrainState, create_train_state, ema_decay_schedule
 
@@ -125,11 +126,14 @@ def init_state(cfg: Config, model: nn.Module) -> TrainState:
 
 def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark):
     """The tail of every step: the total (summed in sorted key order, as
-    jax.tree.leaves orders a dict), backward, the solver, the step count,
-    the EMA. Returns (state, metrics as detached 0-d tensors)."""
+    jax.tree.leaves orders a dict), backward, the gradients averaged over
+    the ranks under data parallel (parallel/dist.py), the solver, the step
+    count, the EMA. Returns (state, metrics as detached 0-d tensors: this
+    rank's terms)."""
     total = sum(ld[k] for k in sorted(ld))
     state.opt.zero_grad(set_to_none=True)
     total.backward()
+    average_gradients(state.model.parameters())
     mark("backward")
     state.opt.step()
     state.step += 1

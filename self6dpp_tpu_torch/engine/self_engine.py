@@ -24,11 +24,11 @@ place. The geo step's random draws (warp matrices, colour gain, shift and
 noise) come from draw_geo_aug, a torch.Generator's, and the step takes
 them as an argument.
 
-Not ported here: textured meshes (they raise where the batch has them);
-the JAX pose step's emit_render argument and its extra_grads and
-refiner_vars inputs (the port's refiner is a module whose weights the
-caller sets); and the side programs that feed split_lab
-(make_lab_grad_fn, make_lab_fwd_fn, make_lab_pixel_fn).
+Textured models (YCB-V) render their UVs and sample the class atlas
+(render_student_pose). Not ported here: the JAX pose step's emit_render
+argument and its extra_grads and refiner_vars inputs (the port's refiner
+is a module whose weights the caller sets); and the side programs that
+feed split_lab (make_lab_grad_fn, make_lab_fwd_fn, make_lab_pixel_fn).
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ from ..models.lpips import LPIPS, build_lpips
 from ..models.repj_refiner import repj_weak_loss
 from ..ops.fps import fps_points
 from ..ops.geometry import compute_vf
-from ..ops.rasterizer import compute_vertex_normals, rasterize_batch
+from ..ops.rasterizer import (compute_vertex_normals, rasterize_batch,
+                              sample_texture)
 from ..ops.warp import affine_warp, sample_pose_variated_affines
 from ..ops.zoom import zoom_K
 from .deepim_engine import make_refine_fn, to_device
@@ -78,19 +79,30 @@ def render_student_pose(cfg: Config, batch: dict[str, Tensor], rot: Tensor,
                         impl: str = "kernel") -> dict[str, Tensor]:
     """Differentiable ROI-frame render of the predicted pose with the soft
     silhouette. batch: mesh_verts (C,V,3), mesh_faces (C,F,3), mesh_colors
-    (C,V,3) per class, gathered by roi_cls; roi_zoom_K (B,3,3)."""
-    if "mesh_uv" in batch and "mesh_texture" in batch:
-        raise ValueError("textured meshes belong to a later slice of the port")
+    (C,V,3) per class, gathered by roi_cls; roi_zoom_K (B,3,3). Textured
+    models (YCB-V: mesh_uv (C,V,2) and mesh_texture (C,Ht,Wt,3) in the
+    batch) rasterise their UVs as the attributes (kernels B1/B2 at D = 2)
+    and sample the class atlas at them, the colour masked ('uv' holds the
+    rasterised UVs); its gradient flows through the sample into the UVs'
+    cotangent."""
     s = cfg.model.input_res
     cls = batch["roi_cls"].long()
+    textured = "mesh_uv" in batch and "mesh_texture" in batch
+    attrs = batch["mesh_uv" if textured else "mesh_colors"][cls]
     out = rasterize_batch(
-        batch["mesh_verts"][cls], batch["mesh_faces"][cls],
-        batch["mesh_colors"][cls], batch["roi_zoom_K"], rot, trans,
+        batch["mesh_verts"][cls], batch["mesh_faces"][cls], attrs,
+        batch["roi_zoom_K"], rot, trans,
         height=s, width=s, tile_px=cfg.renderer.tile_px,
         faces_per_tile=cfg.renderer.faces_per_tile, sigma_px=soft_sigma,
         impl=impl, device=rot.device)
-    return {"color": out.attr, "prob": out.prob, "mask": out.mask,
-            "depth": out.depth}
+    ren = {"color": out.attr, "prob": out.prob, "mask": out.mask,
+           "depth": out.depth}
+    if textured:
+        ren["uv"] = out.attr
+        ren["color"] = sample_texture(
+            batch["mesh_texture"], out.attr[..., 0], out.attr[..., 1],
+            cls) * out.mask[..., None]
+    return ren
 
 
 def select_pseudo_pose(ss: SelfSupConfig, batch: dict[str, Tensor],

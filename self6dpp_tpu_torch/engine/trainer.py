@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel.dist import is_main, mean_metrics
 from .checkpoint import CheckpointManager
 from .train_state import TrainState
 from .writers import EventStorage, JSONWriter, TensorboardWriter, \
@@ -48,7 +49,9 @@ def do_train(
     eval_fn(state) -> tables every test.eval_period iterations and
     vis_fn(state, device batch, storage) every vis_period. timings, when
     given, gets one {'wait_s', 'step_s'} per iteration: the host seconds
-    spent getting the batch onto the device and in the step's call."""
+    spent getting the batch onto the device and in the step's call.
+    Under data parallel (parallel/dist.py) the metrics are the ranks'
+    means, and only rank 0 writes, saves, evaluates and draws."""
     out = f"{cfg.output_dir}/{cfg.exp_name}"
     ckpt = CheckpointManager(f"{out}/ckpt", max_to_keep=cfg.ckpt_max_to_keep,
                              save_period=cfg.ckpt_period)
@@ -57,10 +60,13 @@ def do_train(
         logger.info(f"resumed from iteration {start_iter}")
 
     storage = EventStorage()
+    main = is_main()
     writers = [TerminalWriter(storage, cfg.solver.total_iters, cfg.log_period),
-               JSONWriter(storage, f"{out}/metrics.json", cfg.log_period)]
+               JSONWriter(storage, f"{out}/metrics.json", cfg.log_period)
+               ] if main else []
     tb = None
-    if cfg.tensorboard or (cfg.vis_period > 0 and vis_fn is not None):
+    if main and (cfg.tensorboard or (cfg.vis_period > 0
+                                     and vis_fn is not None)):
         tb = TensorboardWriter(storage, f"{out}/tb", cfg.log_period)
         writers.append(tb)
         storage.tb = tb
@@ -96,10 +102,10 @@ def do_train(
         if timings is not None:
             timings.append({"wait_s": t1 - t0,
                             "step_s": time.perf_counter() - t1})
-        pending.append((it + 1, metrics))
-        vis_due = (vis_fn is not None and cfg.vis_period > 0
+        pending.append((it + 1, mean_metrics(metrics)))
+        vis_due = (main and vis_fn is not None and cfg.vis_period > 0
                    and (it + 1) % cfg.vis_period == 0)
-        eval_due = (eval_fn is not None and cfg.test.eval_period > 0
+        eval_due = (main and eval_fn is not None and cfg.test.eval_period > 0
                     and (it + 1) % cfg.test.eval_period == 0)
         ckpt_due = cfg.ckpt_period > 0 and (it + 1) % cfg.ckpt_period == 0
         if ((it + 1) % cfg.log_period == 0 or vis_due or eval_due or ckpt_due

@@ -16,6 +16,8 @@ from collections import defaultdict, deque
 
 import numpy as np
 
+from ..parallel.dist import is_main
+
 logger = logging.getLogger("self6dpp_tpu_torch")
 
 
@@ -141,7 +143,7 @@ class TensorboardWriter:
 def setup_logger(output_dir: str | None = None,
                  level: int = logging.INFO) -> logging.Logger:
     """The port's logger: to the terminal, and to <output_dir>/log.txt
-    when given (set up once per process)."""
+    when given and this process is rank 0 (set up once per process)."""
     lg = logging.getLogger("self6dpp_tpu_torch")
     if lg.handlers:
         return lg
@@ -151,7 +153,7 @@ def setup_logger(output_dir: str | None = None,
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
     lg.addHandler(sh)
-    if output_dir:
+    if output_dir and is_main():
         os.makedirs(output_dir, exist_ok=True)
         fh = logging.FileHandler(os.path.join(output_dir, "log.txt"))
         fh.setFormatter(fmt)

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..parallel.dist import batch_denom
+
 
 def _downscale(x: Tensor, factor: int) -> Tensor:
     """Average-pool (B, H, W, C) by an integer factor (windows that do not
@@ -34,7 +36,7 @@ def one_scale_epe(pred_flow: Tensor, gt_flow: Tensor, valid: Tensor,
     gt = _downscale(gt_flow, factor) / factor
     v = _downscale(valid[..., None], factor)[..., 0]
     epe = torch.linalg.vector_norm(pred_flow * div_flow - gt, dim=-1)
-    return (epe * v).sum() / v.sum().clamp_min(1.0)
+    return (epe * v).sum() / batch_denom(v.sum())
 
 
 def multiscale_epe(pred_flows: list[Tensor], gt_flow: Tensor, valid: Tensor,

@@ -10,6 +10,7 @@ import torch
 from torch import Tensor
 
 from ..config import LossConfig, PnPNetConfig
+from ..parallel.dist import batch_denom
 from .common import pointwise_loss, softmax_ce
 from .mask_losses import mask_loss
 from .pm_loss import pm_loss
@@ -38,7 +39,7 @@ def gdrn_loss(cfg: LossConfig, pnp_cfg: PnPNetConfig, out: dict[str, Tensor],
                 "obj": batch["gt_mask_obj"]}
 
     gm = gt_masks[cfg.xyz_loss_mask_gt]
-    denom = gm.sum().clamp_min(1.0)
+    denom = batch_denom(gm.sum())
     if cfg.xyz_loss_type == "L1":
         diff = (out["coor"] - batch["gt_xyz"]).abs() * gm[..., None]
         for i, ax in enumerate("xyz"):
@@ -62,7 +63,7 @@ def gdrn_loss(cfg: LossConfig, pnp_cfg: PnPNetConfig, out: dict[str, Tensor],
 
     gm = gt_masks[cfg.region_loss_mask_gt]
     ce = softmax_ce(out["region_logits"], batch["gt_region"], dim=-1)
-    loss["loss_region"] = (ce * gm).sum() / gm.sum().clamp_min(1.0) \
+    loss["loss_region"] = (ce * gm).sum() / batch_denom(gm.sum()) \
         * cfg.region_lw
 
     if cfg.vf_lw > 0 and "vf" in out and "gt_vf_vis" in batch:

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..parallel.dist import batch_denom
+
 from .common import sigmoid_bce, softmax_ce
 
 
@@ -20,8 +22,8 @@ def weighted_ex_loss_probs(probs: Tensor, target: Tensor,
     w = 1.0 if weight is None else weight
     pos_loss = -target * torch.log(probs) * w * pos
     neg_loss = -torch.log(1 - probs + 1e-8) * w * neg
-    num_pos = pos.sum().clamp_min(1.0)
-    num_neg = neg.sum().clamp_min(1.0)
+    num_pos = batch_denom(pos.sum())
+    num_neg = batch_denom(neg.sum())
     return pos_loss.sum() / num_pos + neg_loss.sum() / num_neg
 
 

@@ -28,6 +28,7 @@ from ..ops.color import lab_loss
 from ..ops.geometry import backproject_depth
 from ..ops.lab_cuda import lab_value_grad_scaled, lab_value_grad_scaled_plain
 from ..ops.ssim import ms_ssim
+from ..parallel.dist import batch_denom, global_max, rank_share
 from .mask_losses import weighted_ex_loss_probs
 from .pm_loss import pm_loss
 
@@ -72,32 +73,32 @@ def compute_mask_edge_weights(mask: Tensor, dilate_ks: int = 11,
     g = torch.exp(-0.5 * (edge * w_edge) ** 2) / math.sqrt(2 * math.pi)
     if edge_lower:
         return g + 1.0
-    return g.max() - g + 1.0
+    return global_max(g.max()) - g + 1.0
 
 
 def vf_loss(pred_vf: Tensor, gt_vf: Tensor, mask: Tensor) -> Tensor:
     """Masked L1 plus cosine misalignment of 2-D vector fields. pred, gt
     (B,H,W,2k) as [u0,v0,u1,v1,...]; mask (B,H,W)."""
     m = mask[..., None]
-    denom = (m.sum() * pred_vf.shape[-1]).clamp_min(1.0)
+    denom = batch_denom(m.sum() * pred_vf.shape[-1])
     l1 = ((pred_vf - gt_vf).abs() * m).sum() / denom
     b, h, w, c = pred_vf.shape
     p = pred_vf.reshape(b, h, w, c // 2, 2)
     g = gt_vf.reshape(b, h, w, c // 2, 2)
     nn_ = torch.linalg.vector_norm(p, dim=-1) * torch.linalg.vector_norm(g, dim=-1)
     cos = (p * g).sum(-1) / nn_.clamp_min(1e-6)
-    cos_term = ((1.0 - cos) * m).sum() / (mask.sum() * (c // 2)).clamp_min(1.0)
+    cos_term = ((1.0 - cos) * m).sum() / batch_denom(mask.sum() * (c // 2))
     return l1 + cos_term
 
 
 def norm_loss(pred_n: Tensor, gt_n: Tensor, mask: Tensor) -> Tensor:
     """Masked L1 plus cosine misalignment of surface normals (B,H,W,3)."""
     m = mask[..., None]
-    l1 = ((pred_n - gt_n).abs() * m).sum() / (m.sum() * 3).clamp_min(1.0)
+    l1 = ((pred_n - gt_n).abs() * m).sum() / batch_denom(m.sum() * 3)
     nn_ = (torch.linalg.vector_norm(pred_n, dim=-1)
            * torch.linalg.vector_norm(gt_n, dim=-1))
     cos = (pred_n * gt_n).sum(-1) / nn_.clamp_min(1e-6)
-    cos_term = ((1.0 - cos) * mask).sum() / mask.sum().clamp_min(1.0)
+    cos_term = ((1.0 - cos) * mask).sum() / batch_denom(mask.sum())
     return l1 + cos_term
 
 
@@ -107,7 +108,7 @@ def _init_pred_terms(loss: dict, pred: dict, pseudo: dict) -> None:
     m = pseudo["vis_mask_lr"][..., None]
     if "coor" in pred and "coor" in pseudo:
         diff = (pred["coor"] - pseudo["coor"]).abs() * m
-        loss["loss_init_pred_xyz"] = diff.sum() / (m.sum().clamp_min(1.0) * 3)
+        loss["loss_init_pred_xyz"] = diff.sum() / (batch_denom(m.sum()) * 3)
     if "region_logits" in pred and "region" in pseudo:
         pr = torch.softmax(pred["region_logits"], dim=-1)
         loss["loss_region_init_pred"] = ((pr - pseudo["region"]).abs() * m).mean()
@@ -206,6 +207,11 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
         lab_val, g_raw, scale = fn(ren_m.detach(), img_m.detach(),
                                    pseudo_vis.detach(), cfg.lab_no_l,
                                    cfg.lab_lw)
+        share = rank_share(pseudo_vis.sum())
+        if share is not None:
+            # B3 normalises by this rank's mask; the step's term is the
+            # rank's share of the global batch's (parallel/dist.py)
+            lab_val, scale = lab_val * share, scale * share
         ren_m = InjectGrad.apply(ren_m, g_raw, scale)
         loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
 

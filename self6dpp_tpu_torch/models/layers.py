@@ -7,6 +7,8 @@ import torch
 import torch.nn.functional as Fnn
 from torch import Tensor, nn
 
+from ..parallel.dist import global_sum, world_size
+
 
 def get_act(name: str) -> nn.Module:
     name = name.lower()
@@ -44,7 +46,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     m r + (1 - m) s with the biased variance (torch's BatchNorm2d takes the
     unbiased one, n/(n-1) away: 1 + 6.5e-4 at batch 24 and stride 32).
     flax_momentum is Flax's m: 0.9 for GDRN and FlowNetS, 0.97 (eps 1e-3)
-    for YOLOv4. Eval mode is torch's. Same state_dict as nn.BatchNorm2d."""
+    for YOLOv4. Eval mode is torch's. Same state_dict as nn.BatchNorm2d.
+    Under data parallel (parallel/dist.py) the statistics are the global
+    batch's: x and x² summed over the ranks, differentiably."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  flax_momentum: float = 0.9):
@@ -55,8 +59,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if world_size() > 1:
+            # the global batch's statistics, as Flax computes them under
+            # jit on a data mesh: sums of x and x² over every rank
+            n = xf.numel() // xf.shape[1] * world_size()
+            sums = global_sum(torch.stack([xf.sum((0, 2, 3)),
+                                           (xf * xf).sum((0, 2, 3))]))
+            mean, ex2 = sums[0] / n, sums[1] / n
+        else:
+            mean = xf.mean((0, 2, 3))
+            ex2 = (xf * xf).mean((0, 2, 3))
+        var = (ex2 - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as Fnn
 from torch import Tensor, nn
 
+from ..parallel.dist import batch_denom
 from .layers import FlaxBatchNorm2d
 
 # default anchors (yolov4-mish.yaml, 3 per scale, strides 8/16/32)
@@ -323,7 +324,7 @@ def yolo_loss(outs: list[Tensor], targets: Tensor, tvalid: Tensor,
             pwh = (sig[..., 2:4] * 2.0) ** 2 * anchors[None, None]
             ciou = bbox_ciou(torch.cat([pxy, pwh], -1), tbox)     # (B,M,A)
             selm = sel.to(dt)
-            nsel = selm.sum().clamp_min(1.0)
+            nsel = batch_denom(selm.sum())
             total_box = total_box + ((1.0 - ciou) * selm).sum() / nsel \
                 * BALANCE[si]
             if cfg.num_classes > 1:

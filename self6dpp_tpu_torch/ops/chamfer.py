@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..parallel.dist import batch_denom
+
 
 def _sq_norm(p: Tensor) -> Tensor:
     """|p|² over the last axis (3), as x·x + y·y + z·z with each add fused
@@ -55,8 +57,8 @@ def chamfer_loss(p1: Tensor, p2: Tensor, w1: Tensor, w2: Tensor,
     if dist_thr > 0:
         m1 = m1 * (d1 < dist_thr ** 2)
         m2 = m2 * (d2 < dist_thr ** 2)
-    loss = (d1 * m1).sum() / m1.sum().clamp_min(1.0) \
-        + (d2 * m2).sum() / m2.sum().clamp_min(1.0)
+    loss = (d1 * m1).sum() / batch_denom(m1.sum()) \
+        + (d2 * m2).sum() / batch_denom(m2.sum())
     if center_lw > 0:
         c1 = (p1 * m1[..., None]).sum(1) / m1.sum(1, keepdim=True).clamp_min(1.0)
         c2 = (p2 * m2[..., None]).sum(1) / m2.sum(1, keepdim=True).clamp_min(1.0)

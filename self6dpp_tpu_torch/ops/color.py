@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..parallel.dist import batch_denom
+
 # sRGB D65
 RGB2XYZ = ((0.412453, 0.357580, 0.180423),
            (0.212671, 0.715160, 0.072169),
@@ -50,5 +52,5 @@ def lab_loss(pred_rgb: Tensor, gt_rgb: Tensor, mask: Tensor | None = None,
         diff = diff + (Lp - Lg).abs()
         n_ch = 3
     if mask is not None:
-        return (diff * mask).sum() / (mask.sum().clamp_min(1.0) * n_ch)
+        return (diff * mask).sum() / (batch_denom(mask.sum()) * n_ch)
     return diff.mean() / n_ch

@@ -21,6 +21,7 @@ import torch
 from torch import Tensor
 
 from .. import resolve_device
+from .zoom import _bilinear_sample
 
 
 class RasterOut(NamedTuple):
@@ -202,6 +203,131 @@ def render_color(verts, faces, colors, K, R, t, height, width, **kw):
                           height=height, width=width, **kw)
     return {"color": out.attr, "prob": out.prob, "mask": out.mask,
             "depth": out.depth}
+
+
+def sample_texture(tex: Tensor, u: Tensor, v: Tensor,
+                   index: Tensor | None = None) -> Tensor:
+    """Bilinear texture lookup of UVs u, v (B, H, W) at pixel coordinates
+    (u (Wt - 1), v (Ht - 1)), as the JAX package samples a texture: tex
+    (N, Ht, Wt, C), image index[b] (default b) for row b, taps outside
+    read zero (ops/zoom.py::_bilinear_sample). Differentiable in u, v and
+    tex."""
+    ht, wt = tex.shape[1], tex.shape[2]
+    return _bilinear_sample(tex, u * (wt - 1), v * (ht - 1), index)
+
+
+def _textures_for(texture: Tensor, B: int) -> tuple[Tensor, Tensor | None]:
+    """A shared (Ht, Wt, C) texture as a table of one read by every image,
+    or B textures (B, Ht, Wt, C) read in order."""
+    if texture.ndim == 3:
+        return texture[None], torch.zeros(B, dtype=torch.long,
+                                          device=texture.device)
+    return texture, None
+
+
+def render_textured(verts, faces, uv, texture, K, R, t, height, width,
+                    **kw):
+    """Texture-mapped render of B poses (DIB-R TexRender): the per-vertex
+    UVs rasterised as two attribute channels (the fine stage's kernels at
+    D = 2), then the texture sampled bilinearly at them and masked. uv
+    (V,2)|(B,V,2) in [0, 1] (v down); texture (Ht,Wt,3) shared or
+    (B,Ht,Wt,3). Differentiable in the pose, the vertices, the UVs and the
+    texels. Returns color, soft silhouette, hard mask, depth."""
+    out = rasterize_batch(verts, faces, uv, K, R, t,
+                          height=height, width=width, **kw)
+    tex, index = _textures_for(
+        torch.as_tensor(texture, dtype=torch.float32,
+                        device=out.attr.device), out.mask.shape[0])
+    color = sample_texture(tex, out.attr[..., 0], out.attr[..., 1], index)
+    return {"color": color * out.mask[..., None], "prob": out.prob,
+            "mask": out.mask, "depth": out.depth}
+
+
+def render_shaded(verts, faces, normals, K, R, t, height, width, *,
+                  mode: str = "lambertian", colors=None, uv=None,
+                  texture=None, light_dir=(0.0, 0.0, -1.0),
+                  ambient: float = 0.4, diffuse: float = 0.6,
+                  material=None, shininess: float = 40.0, sh_coeffs=None,
+                  **kw):
+    """Lit render of B poses (DIB-R's Lambertian, Phong and
+    spherical-harmonics modes): one rasterisation of [albedo | normal]
+    attributes (vertex colours, or UVs and a texture), then the shading
+    per pixel on the camera-frame normal R n. normals (V,3)|(B,V,3)
+    object-frame vertex normals (compute_vertex_normals); light_dir (3,) or
+    (B,3) in the camera frame; material (B,3,3) rows ambient, diffuse,
+    specular (phong; default [[a]*3, [d]*3, [0.5]*3]); sh_coeffs (B,9).
+    Returns color (clipped to [0, 1], masked), soft silhouette, hard mask,
+    depth and the camera-frame normal (masked)."""
+    from .geometry import backproject_depth
+    dev = resolve_device(kw.get("device"))
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    use_tex = uv is not None
+    base_attr = f32(uv if use_tex else colors)
+    normals = f32(normals)
+    R = f32(R)
+    nd = base_attr.shape[-1]
+    if base_attr.ndim != normals.ndim:
+        B = R.shape[0]
+        base_attr = base_attr.expand(B, *base_attr.shape[-2:])
+        normals = normals.expand(B, *normals.shape[-2:])
+    attrs = torch.cat([base_attr, normals], dim=-1)
+    out = rasterize_batch(verts, faces, attrs, K, R, t,
+                          height=height, width=width, **kw)
+    B = out.mask.shape[0]
+    n_obj = out.attr[..., nd:nd + 3]
+    Rb = R.expand(B, 3, 3)
+    n_cam = torch.einsum("bij,bhwj->bhwi", Rb, n_obj)
+    n_cam = n_cam / torch.linalg.vector_norm(
+        n_cam, dim=-1, keepdim=True).clamp_min(1e-8)
+
+    if use_tex:
+        tex, index = _textures_for(f32(texture), B)
+        base = sample_texture(tex, out.attr[..., 0], out.attr[..., 1], index)
+    else:
+        base = out.attr[..., :3]
+
+    if mode == "sh":
+        if sh_coeffs is None:
+            raise ValueError("sh mode needs sh_coeffs (B, 9)")
+        x, y, z = n_cam[..., 0:1], n_cam[..., 1:2], n_cam[..., 2:3]
+        bands = torch.cat([
+            0.2820948 * torch.ones_like(x),
+            -0.3257350 * y, 0.3257350 * z, -0.3257350 * x,
+            0.2731371 * (x * y), -0.2731371 * (y * z),
+            0.1365686 * (z * z) - 0.0788479,
+            -0.1931371 * (x * z), 0.1365686 * (x * x - y * y),
+        ], dim=-1)                                            # (B,H,W,9)
+        coef = (bands * f32(sh_coeffs)[:, None, None, :]).sum(
+            -1, keepdim=True)
+        color = coef * base
+    elif mode in ("lambertian", "phong"):
+        light = f32(light_dir)
+        light = light / torch.linalg.vector_norm(
+            light, dim=-1, keepdim=True).clamp_min(1e-8)
+        lb = light.expand(B, 3)[:, None, None, :]
+        cos_t = (n_cam * lb).sum(-1, keepdim=True).clamp(0.0, 1.0)
+        if mode == "lambertian":
+            color = base * (ambient + diffuse * cos_t)
+        else:
+            mat = f32(material) if material is not None else f32(
+                [[ambient] * 3, [diffuse] * 3, [0.5] * 3]).expand(B, 3, 3)
+            # the eye direction from the camera-frame fragment position
+            pos = backproject_depth(out.depth, f32(K).expand(B, 3, 3))
+            eye = -pos / torch.linalg.vector_norm(
+                pos, dim=-1, keepdim=True).clamp_min(1e-8)
+            refl = -lb + 2.0 * cos_t * n_cam
+            cos_a = (refl * eye).sum(-1, keepdim=True).clamp(1e-5, 1.0)
+            cos_a = cos_a ** shininess
+            amb = mat[:, 0][:, None, None, :]
+            dif = mat[:, 1][:, None, None, :] * cos_t
+            spe = mat[:, 2][:, None, None, :] * cos_a
+            color = (amb + dif) * base + spe
+    else:
+        raise ValueError(f"unknown shading mode: {mode}")
+
+    color = color.clamp(0.0, 1.0) * out.mask[..., None]
+    return {"color": color, "prob": out.prob, "mask": out.mask,
+            "depth": out.depth, "normal": n_cam * out.mask[..., None]}
 
 
 def compute_vertex_normals(verts: Tensor, faces: Tensor) -> Tensor:

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as Fnn
 from torch import Tensor
 
+from ..parallel.dist import global_mean
+
 _WIN_SIZE = 11
 _SIGMA = 1.5
 _C1 = 0.01 ** 2                   # (K1 * data range)², the range being 1
@@ -51,7 +53,7 @@ def _ssim_cs(img1: Tensor, img2: Tensor) -> tuple[Tensor, Tensor]:
 
     cs = (2 * s12 + _C2) / (s1 + s2 + _C2)
     ss = ((2 * mu12 + _C1) / (mu1_sq + mu2_sq + _C1)) * cs
-    return ss.mean(), cs.mean()
+    return global_mean(ss.mean()), global_mean(cs.mean())
 
 
 def ssim(img1: Tensor, img2: Tensor, return_cs: bool = False):

@@ -77,23 +77,28 @@ def crop_resize(imgs: Tensor, boxes: Tensor, out_h: int, out_w: int) -> Tensor:
                             vs[:, :, None].expand(B, out_h, out_w))
 
 
-def _bilinear_sample(img: Tensor, us: Tensor, vs: Tensor) -> Tensor:
-    """img (B, H, W, C), us/vs (B, h, w) pixel coords -> (B, h, w, C); taps
-    outside the image read zero."""
-    B, H, W, C = img.shape
+def _bilinear_sample(img: Tensor, us: Tensor, vs: Tensor,
+                     index: Tensor | None = None) -> Tensor:
+    """img (N, H, W, C), us/vs (B, h, w) pixel coords -> (B, h, w, C): row
+    b samples image index[b] (default b, N = B) with one gather from the
+    flattened images, so that an image read by many rows (a class's
+    texture) is not copied per row; taps outside the image read zero."""
+    N, H, W, C = img.shape
+    B = us.shape[0]
+    index = torch.arange(B, device=us.device) if index is None else index
     u0 = torch.floor(us)
     v0 = torch.floor(vs)
     du = (us - u0)[..., None]
     dv = (vs - v0)[..., None]
     u0i = u0.long()
     v0i = v0.long()
-    flat = img.reshape(B, H * W, C)
+    flat = img.reshape(N * H * W, C)
+    base = (index.long() * (H * W)).view(B, *([1] * (us.ndim - 1)))
 
     def at(vi, ui):
         inb = (vi >= 0) & (vi < H) & (ui >= 0) & (ui < W)
-        idx = vi.clamp(0, H - 1) * W + ui.clamp(0, W - 1)          # (B,h,w)
-        g = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
-        return g.reshape(idx.shape + (C,)) * inb[..., None]
+        idx = base + vi.clamp(0, H - 1) * W + ui.clamp(0, W - 1)
+        return flat[idx] * inb[..., None]
 
     top = at(v0i, u0i) * (1 - du) + at(v0i, u0i + 1) * du
     bot = at(v0i + 1, u0i) * (1 - du) + at(v0i + 1, u0i + 1) * du

@@ -13,7 +13,13 @@ the test split; prints the recall tables as markdown.
 
     python -m self6dpp_tpu_torch.tools.train_deepim \\
         --config configs/deepim/lm_flownet.py [--eval-only] [--resume] \\
-        [--init-npz WEIGHTS.npz] [--opts k=v ...] [--device cpu]
+        [--init-npz WEIGHTS.npz] [--init-pose-file POSES.json] \\
+        [--opts k=v ...] [--device cpu] \\
+        [--dist-coordinator HOST:PORT --dist-nprocs N --dist-rank R]
+
+--init-pose-file is taken and not read, as the JAX CLI takes it: a warning
+says so. --dist-*: training data parallel over N processes
+(parallel/dist.py); --eval-only runs on rank 0.
 
 Weights: --init-npz (the JAX DeepIM's flat .npz) over the seeded init;
 without it, --eval-only takes the latest step of the checkpoint directory
@@ -24,23 +30,33 @@ raises.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 
 import numpy as np
 import torch
 
+from ..parallel.dist import (add_distributed_args, is_main,
+                             maybe_init_distributed_from_args)
+
+logger = logging.getLogger("self6dpp_tpu_torch")
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--init-pose-file", default="",
+                   help="taken and not read, as by the JAX CLI: the eval "
+                        "starts from the ground truth plus noise")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init-npz", default="",
                    help="flat .npz of JAX-layout DeepIM weights loaded over "
                         "the seeded init (strict=False)")
     p.add_argument("--opts", nargs="*", default=[])
     p.add_argument("--device", default=None, help="default: cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -149,9 +165,10 @@ def train(args, cfg, dev, impl: str) -> dict:
 def main(argv=None, device=None, impl: str = "kernel") -> dict:
     """Training returns train()'s dict; --eval-only returns {'tables',
     'results', 'timings' (per batch: the loader's host and label-render
-    seconds, the wait and step seconds of run_inference), 'evaluate_s'}.
-    device: the default of --device; impl: the fine stage of every render
-    ('kernel' or 'plain')."""
+    seconds, the wait and step seconds of run_inference), 'evaluate_s'} on
+    rank 0 ({} on the others under --dist-*). device: the default of
+    --device; impl: the fine stage of every render ('kernel' or
+    'plain')."""
     from .. import resolve_device
     from ..config import apply_overrides, load_config
     from ..engine import deepim_engine as de
@@ -159,14 +176,21 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     from ..engine.evaluator import (PoseEvaluator, run_inference,
                                     table_to_markdown)
     from ..engine.writers import setup_logger
-    from .train_gdrn import build_dataset, load_latest_weights
+    from .train_gdrn import build_dataset, ckpt_dir, load_latest_weights
 
     args = parse_args(argv)
-    dev = resolve_device(args.device or device)
+    dev = maybe_init_distributed_from_args(
+        args, resolve_device(args.device or device))
     cfg = apply_overrides(load_config(args.config), args.opts)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
+    if args.init_pose_file:
+        logger.warning(f"--init-pose-file {args.init_pose_file} is not read: "
+                       "as the JAX CLI, the eval starts from the ground "
+                       "truth plus noise")
     if not args.eval_only:
         return train(args, cfg, dev, impl)
+    if not is_main():
+        return {}
 
     ds, models, meta = build_dataset(cfg, train=False, device=dev, impl=impl)
     model = de.build_deepim(cfg, dev,
@@ -174,7 +198,7 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     if args.init_npz:
         load_params_npz(args.init_npz, model, strict=False)
     else:
-        load_latest_weights(cfg, model)
+        load_latest_weights(ckpt_dir(cfg), model)
     rng = np.random.default_rng(cfg.seed)
     # the JAX CLI draws the noise of one batch for its init batch first
     draw_noise(rng, cfg.solver.ims_per_batch)

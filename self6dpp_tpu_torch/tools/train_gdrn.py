@@ -13,7 +13,11 @@ writes <output_dir>/<exp_name>/results-bop.csv.
     python -m self6dpp_tpu_torch.tools.train_gdrn \\
         --config configs/gdrn/lm_base.py [--eval-only] [--resume] \\
         [--det-file DETS.json] [--init-npz WEIGHTS.npz] [--opts k=v ...] \\
-        [--device cpu]
+        [--device cpu] \\
+        [--dist-coordinator HOST:PORT --dist-nprocs N --dist-rank R]
+
+--dist-*: training data parallel over N processes, each rank feeding its
+own ims_per_batch (parallel/dist.py); --eval-only runs on rank 0.
 
 Weights: --init-npz (the JAX package's flat .npz, engine/checkpoint.py)
 over the seeded init (cfg.seed); the student and the teacher start from
@@ -30,6 +34,9 @@ import time
 
 import torch
 
+from ..parallel.dist import (add_distributed_args, is_main,
+                             maybe_init_distributed_from_args)
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
@@ -42,6 +49,7 @@ def parse_args(argv=None):
                         "seeded init (strict=False)")
     p.add_argument("--opts", nargs="*", default=[])
     p.add_argument("--device", default=None, help="default: cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -83,16 +91,18 @@ def ckpt_dir(cfg) -> str:
     return os.path.join(cfg.output_dir, cfg.exp_name, "ckpt")
 
 
-def load_latest_weights(cfg, model) -> None:
-    """The student's weights of the checkpoint directory's latest step
-    into `model`, when there is a step. Raises on orbax steps."""
+def load_latest_weights(directory: str, model) -> bool:
+    """The student's weights of the latest step of a checkpoint directory
+    into `model`, when there is a step; returns whether there was. Raises
+    on orbax steps."""
     from ..engine.checkpoint import (check_no_orbax_steps, load_params_npz,
                                      step_dirs)
-    d = ckpt_dir(cfg)
-    check_no_orbax_steps(d)
-    steps = step_dirs(d)[0]
+    check_no_orbax_steps(directory)
+    steps = step_dirs(directory)[0]
     if steps:
-        load_params_npz(os.path.join(d, str(steps[-1]), "model.npz"), model)
+        load_params_npz(os.path.join(directory, str(steps[-1]),
+                                     "model.npz"), model)
+    return bool(steps)
 
 
 def loop_timings(ds, timings: list[dict]) -> list[dict]:
@@ -155,8 +165,10 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     """Training returns train()'s dict; --eval-only returns {'tables',
     'results' (the CSV's rows), 'csv', 'timings' (per batch: the loader's
     host and label-render seconds, the wait and step seconds of
-    run_inference), 'evaluate_s'}. device: the default of --device; impl:
-    the fine stage of every render ('kernel' or 'plain')."""
+    run_inference), 'evaluate_s'}, on rank 0 ({} on the others: --dist-*
+    runs training data parallel, parallel/dist.py). device: the default of
+    --device; impl: the fine stage of every render ('kernel' or
+    'plain')."""
     from .. import resolve_device
     from ..config import Config, apply_overrides, load_config
     from ..engine import gdrn_engine as eng
@@ -167,11 +179,14 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     from ..engine.writers import setup_logger
 
     args = parse_args(argv)
-    dev = resolve_device(args.device or device)
+    dev = maybe_init_distributed_from_args(
+        args, resolve_device(args.device or device))
     cfg: Config = apply_overrides(load_config(args.config), args.opts)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
     if not args.eval_only:
         return train(args, cfg, dev, impl)
+    if not is_main():
+        return {}
 
     ds, models, meta = build_dataset(cfg, train=False, det_file=args.det_file,
                                      device=dev, impl=impl)
@@ -179,7 +194,7 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     if args.init_npz:
         load_params_npz(args.init_npz, model, strict=False)
     else:
-        load_latest_weights(cfg, model)
+        load_latest_weights(ckpt_dir(cfg), model)
     state = TrainState(step=0, model=model, teacher=None, opt=None)
     step = eng.make_eval_step(cfg, model)
     ev = PoseEvaluator(models, meta, device=dev, impl=impl)

@@ -17,9 +17,11 @@ iterations.
     python -m self6dpp_tpu_torch.tools.train_self6dpp \\
         --config configs/self6dpp/lm_ss.py [--weights STAGE1_CKPT_DIR] \\
         [--init-npz WEIGHTS.npz] [--det-file DETS.json] [--resume] \\
-        [--opts k=v ...] [--device cpu]
+        [--opts k=v ...] [--device cpu] \\
+        [--dist-coordinator HOST:PORT --dist-nprocs N --dist-rank R]
 
-LPIPS reads weights/lpips_alex.npz (relative to the working directory, as
+--dist-*: data parallel over N processes, each rank feeding its own
+ims_per_batch (parallel/dist.py). LPIPS reads weights/lpips_alex.npz (relative to the working directory, as
 the JAX CLI reads it) and, without it, draws its weights from a seed with
 a warning. The refiner reads self_sup.refiner_weights (a flat .npz, or a
 checkpoint directory of the port's train_deepim) and, without them, runs
@@ -34,6 +36,9 @@ import os
 
 import numpy as np
 import torch
+
+from ..parallel.dist import (add_distributed_args,
+                             maybe_init_distributed_from_args)
 
 logger = logging.getLogger("self6dpp_tpu_torch")
 LPIPS_WEIGHTS = os.path.join("weights", "lpips_alex.npz")
@@ -52,6 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--opts", nargs="*", default=[])
     p.add_argument("--device", default=None, help="default: cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -171,7 +177,8 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     from .train_gdrn import build_dataset, ckpt_dir, evaluate_fn
 
     args = parse_args(argv)
-    dev = resolve_device(args.device or device)
+    dev = maybe_init_distributed_from_args(
+        args, resolve_device(args.device or device))
     cfg = apply_overrides(load_config(args.config), args.opts)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
 

@@ -15,7 +15,12 @@ read.
 
     python -m self6dpp_tpu_torch.tools.train_yolov4 \\
         --config configs/gdrn/lm_base.py [--eval-only] [--out-det DETS.json] \\
-        [--resume] [--eval-max-images N] [--opts k=v ...] [--device cpu]
+        [--resume] [--eval-max-images N] [--opts k=v ...] [--device cpu] \\
+        [--dist-coordinator HOST:PORT --dist-nprocs N --dist-rank R]
+
+--dist-*: training data parallel over N processes, each rank taking its
+own batch of every epoch's order (parallel/dist.py); --eval-only runs on
+rank 0.
 
 The batch is solver.ims_per_batch // 4 images at det.input_size², float32.
 The weights start from the seeded init (cfg.seed). A checkpoint directory
@@ -32,6 +37,9 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.dist import (add_distributed_args, is_main,
+                             maybe_init_distributed_from_args)
+
 logger = logging.getLogger("self6dpp_tpu_torch")
 
 
@@ -45,6 +53,7 @@ def parse_args(argv=None):
                    help="cap the in-train eval set (0 = all)")
     p.add_argument("--opts", nargs="*", default=[])
     p.add_argument("--device", default=None, help="default: cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -155,7 +164,8 @@ def main(argv=None, device=None) -> dict:
     from ..models.yolo import YoloConfig
 
     args = parse_args(argv)
-    dev = resolve_device(args.device or device)
+    dev = maybe_init_distributed_from_args(
+        args, resolve_device(args.device or device))
     cfg = apply_overrides(load_config(args.config), args.opts)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
     meta = get_meta(cfg.data.test_datasets[0])
@@ -182,6 +192,8 @@ def main(argv=None, device=None) -> dict:
     state = create_train_state(model, opt, with_ema=False)
 
     if args.eval_only:
+        if not is_main():
+            return {}
         state, _ = CheckpointManager(ckpt_dir).resume_or_load(state,
                                                               resume=True)
         stats: dict = {}

@@ -165,5 +165,5 @@ def test_cli_refuses_training_and_orbax_steps(dataset, tmp_path):
     with pytest.raises(RuntimeError, match="orbax"):
         tgdrn.main(argv[:2] + ["--eval-only"] + argv[2:], device="cpu")
     with pytest.raises(KeyError, match="registered"):
-        tgdrn.main(["--config", "configs/gdrn/hb_base.py", "--eval-only"],
+        tgdrn.main(["--config", "configs/gdrn/nope.py", "--eval-only"],
                    device="cpu")

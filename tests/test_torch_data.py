@@ -148,7 +148,11 @@ def _png(path, ihdr, idat=b"", extra=()):
 
 def test_png_raises_on_what_it_does_not_read(tmp_path):
     jpg = str(tmp_path / "a.jpg")
-    cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    gif = str(tmp_path / "a.gif")
+    with open(gif, "wb") as f:
+        f.write(b"GIF89a" + b"\0" * 20)
     inter = str(tmp_path / "inter.png")
     _png(inter, struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1), b"\0" * 40)
     pal = str(tmp_path / "pal.png")
@@ -161,7 +165,8 @@ def test_png_raises_on_what_it_does_not_read(tmp_path):
     data = bytearray(open(bad_crc, "rb").read())
     data[29] ^= 1                                  # inside IHDR's CRC
     open(bad_crc, "wb").write(bytes(data))
-    for path, what in ((jpg, "not a PNG"), (inter, "interlaced"),
+    for path, what in ((jpg, "progressive"), (gif, "not a PNG"),
+                       (inter, "interlaced"),
                        (pal, "palette"), (rgb16, "16-bit"),
                        (bad_crc, "CRC")):
         with pytest.raises(ValueError, match=what) as e:
@@ -452,9 +457,19 @@ def test_config_registry_matches_jax(rel):
         os.path.join(ROOT, rel))
 
 
+def test_config_registry_covers_every_repo_config():
+    """Each of the repo's config files has its port function."""
+    files = sorted(
+        f"configs/{d}/{n}" for d in os.listdir(os.path.join(ROOT, "configs"))
+        if os.path.isdir(os.path.join(ROOT, "configs", d))
+        for n in os.listdir(os.path.join(ROOT, "configs", d))
+        if n.endswith(".py") and not n.startswith("_"))
+    assert len(files) == 13 and sorted(tcfg.CONFIGS) == files
+
+
 def test_config_registry_and_overrides_raise():
     with pytest.raises(KeyError, match="configs/gdrn/lm_base.py"):
-        tcfg.load_config("configs/gdrn/ycbv_base.py")
+        tcfg.load_config("configs/gdrn/nope.py")
     cfg = tcfg.apply_overrides(tcfg.gdrn_lm_base(), [
         "data.test_datasets=synthetic,lm", "model.num_classes=2",
         "data.label_cache=false", "solver.base_lr=0.5"])
