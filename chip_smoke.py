@@ -33,7 +33,10 @@
   * the slice of every shipped config on its own data: JPEG decoding (the
     *_pbr sets' frames), the textured stage-II step at ycbv_ss (YCB-V's
     atlases, the UVs through B1 and B2), tools/gen_pseudo_poses with the
-    DeepIM refiner, and the CLIs' --dist-* flags.
+    DeepIM refiner, and the CLIs' --dist-* flags;
+  * every GDR-Net architecture the JAX package builds: the Darknet-53,
+    PVNet and FPN variants in stage I, the PVNet one as the stage-II
+    student and through train_gdrn by --opts, and the test-time PnP.
 
     python3 chip_smoke.py [--record FILE]
 
@@ -163,7 +166,27 @@ exits non-zero):
      its first refine inputs;
  26. run train_gdrn at lm_base for one iteration with --dist-coordinator,
      --dist-nprocs 1 and --dist-rank 0 and without them: the same losses,
-     no process group joined.
+     no process group joined;
+ 27. for each GDR-Net variant the JAX GDRN builds beyond the shipped
+     configs, at gdrn_flagship's widths (256² -> 64², 13 classes): V1
+     darknet53_topdown (Darknet-53, a 4x4 deconv and split out layers,
+     ConvPnPNet with the mask concatenated, the extent embedding, DropBlock
+     0.2, centroid_z_abs), V2 pvnet_conv_point (pvnet_resnet18_8s at stride
+     4, the conv head, SimplePointPnPNet, trans), V3 resnet34_fpn (stages
+     1-4, the FPN neck and head): two float32 stage-I steps on the card
+     and on the CPU (2 images, DropBlock fed one seeded mask: losses,
+     parameters and BN statistics agree), then bf16 steps at 24 images
+     timed per phase, with peak memory;
+ 28. the stage-II pose step at stage2_pose_flagship with V2 as the student
+     and its EMA teacher: phase 24's checks (B1, B2, B3 against their
+     plain versions on one step's inputs; the fp32 steps through the
+     kernels and the plain versions; bf16 steps timed per phase, one
+     launch each a step);
+ 29. train_gdrn with --opts selecting V2 on lm_base, 2 iterations on the
+     synthetic set, then --eval-only over its 96 test ROIs; the test-time
+     PnP (evaluator.pnp_from_xyz_mask, RANSAC and iterative) on the eval
+     loader's ground-truth labels, held against the ground-truth pose,
+     and on the trained model's predicted maps, host ms per ROI.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -3401,83 +3424,44 @@ def textured_stage2(cfg, batch_size, device, seed=SEED):
 
 def run_textured_stage2(device, cand_checks):
     """Phase 24: the textured stage-II pose step at ycbv_ss (ycbv_cfg,
-    textured_stage2: 21 classes, 8 ROIs, 5120-face meshes, 2048² atlases):
-      a. on one float32 step's inputs, B1 (the UVs, D = 2, with the soft
-         silhouette and its saved keep), B2 on the cotangents the losses
-         send to prob, depth and the UVs (through the atlas's bilinear
-         sample) and on random ones, and B3 against their plain versions
-         with phase 5's tolerances, timed, with their bounds;
-      b. phase 6's fp32 checks (check_stage2_fp32 on textured builds);
-      c. one bf16 warm-up step held against the fp32 step's losses
-         (TOL_S2_BF16), then S5_TIMED_STEPS timed steps (time_stage2's
-         CUDA-event spans), the launch counts of B1, B2 and B3 set to 0
-         just before and read just after (one each a step), peak memory."""
-    from self6dpp_tpu_torch.engine import self_engine as se
+    textured_stage2: 21 classes, 8 ROIs, 5120-face meshes, 2048² atlases)
+    through run_stage2_checked (B1 on the UVs, D = 2, with the soft
+    silhouette and its saved keep; B2 on the cotangents the losses send to
+    prob, depth and the UVs through the atlas's bilinear sample), with
+    lm_ss's loss family."""
     from self6dpp_tpu_torch.ops import raster_cuda as RC
     cfg, cfg32 = ycbv_cfg("bfloat16"), ycbv_cfg("float32", lr=S2_LR)
-    built = textured_stage2(cfg32, S2_BATCH, device)
-    with cand_order_checked(cand_checks):
-        inputs = stage2_inputs(cfg32, *built[1:])
+
+    def two_attributes(inputs):
         D = (inputs[0].shape[-1] - RC._GEO) // 3
         require(D == 2, "textured render: attribute channels", D)
-        k24 = check_stage2_kernels(cfg32, inputs)
-        del inputs
-        ref32, fp32 = check_stage2_fp32(cfg32, device, S2_BATCH, built,
-                                        build=textured_stage2)
-    del built
-    model, state, batch, lpips = textured_stage2(cfg, S2_BATCH, device)
-    atlas_gib = batch["mesh_texture"].numel() * 4 / 2 ** 30
-    step = se.make_self_train_step(cfg, model, lpips)
-    state, warm = step(state, batch)
-    torch.cuda.synchronize()
-    warm = {k: float(v) for k, v in warm.items()}
-    bf16_err = loss_err(warm, ref32)
-    require(bf16_err <= TOL_S2_BF16, "textured bf16 vs fp32 losses", warm,
-            ref32)
-    torch.cuda.reset_peak_memory_stats()
-    zero_kernel_launches()
-    with scatter_counted() as scatters:
-        times, phases, metrics = timed_steps(step, state, batch,
-                                             S5_TIMED_STEPS)
-    launches = kernel_launches()
-    require(scatters["n"] == 0, "the textured step's B2 ran the scatter")
-    for name, k in launches.items():
-        require(k == S2_LAUNCHES[name] * S5_TIMED_STEPS,
-                "textured launches per step", name, k)
-    for m in metrics:
-        require(all(torch.isfinite(v).item() for v in m.values()),
-                "textured: non-finite loss", m)
+    k24, fp32, timed, batch, last = run_stage2_checked(
+        cfg, cfg32, textured_stage2, device, cand_checks, "textured",
+        two_attributes)
     require({"loss_color_ab_obj", "loss_percep_obj", "loss_ms_ssim",
-             "loss_mask_self"} <= set(metrics[-1]), "ycbv_ss loss terms",
-            sorted(metrics[-1]))
-    timed = {**summary(times, phases), "config": cfg.exp_name,
-             "batch": S2_BATCH, "classes": cfg.model.num_classes,
-             "faces": int(batch["mesh_faces"].shape[1]),
-             "atlas": [ATLAS_SIDE, ATLAS_SIDE, 3], "atlas_gib": atlas_gib,
-             "compute_dtype": cfg.dist.compute_dtype,
-             "tile_px": cfg.renderer.tile_px,
-             "faces_per_tile": cfg.renderer.faces_per_tile,
-             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-             "launches": launches, "bf16_vs_fp32_loss_rel_err": bf16_err,
-             "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+             "loss_mask_self"} <= set(last), "ycbv_ss loss terms",
+            sorted(last))
+    timed.update(atlas=[ATLAS_SIDE, ATLAS_SIDE, 3],
+                 atlas_gib=batch["mesh_texture"].numel() * 4 / 2 ** 30)
     return k24, {"fp32": fp32, "timed": timed}
 
 
-def textured_kernel_lines(k24, timed):
-    """The `kernels` entries of phase 24: B1 and B2 at D = 2 and B3 at
-    ycbv_ss's step, the launches of its timed bf16 run."""
+def stage2_kernel_rows(k, timed, label, lab_label):
+    """The `kernels` entries of a stage-II step's B1, B2 and B3 (names
+    fine_raster_fwd[label], fine_raster_bwd[label],
+    lab_value_grad[lab_label]), the launches of its timed bf16 run."""
     rows = []
     for name, src, replaces, key, err in (
-            ("fine_raster_fwd[ycbv_ss_textured]", "fine_raster_fwd.cu",
+            (f"fine_raster_fwd[{label}]", "fine_raster_fwd.cu",
              "self6dpp_tpu/ops/raster_pallas.py:420", "B1",
-             max(k24["B1"]["max_abs_err"].values())),
-            ("fine_raster_bwd[ycbv_ss_textured]", "fine_raster_bwd.cu",
+             max(k["B1"]["max_abs_err"].values())),
+            (f"fine_raster_bwd[{label}]", "fine_raster_bwd.cu",
              "self6dpp_tpu/ops/raster_pallas.py:459", "B2",
-             k24["B2"]["loss"]["rel_err"] * k24["B2"]["loss"]["max_abs"]),
-            ("lab_value_grad[ycbv_ss]", "lab_value_grad.cu",
+             k["B2"]["loss"]["rel_err"] * k["B2"]["loss"]["max_abs"]),
+            (f"lab_value_grad[{lab_label}]", "lab_value_grad.cu",
              "self6dpp_tpu/ops/lab_pallas.py:171", "B3",
-             k24["B3"]["scaled_max_abs_err"])):
-        d = k24[key]
+             k["B3"]["scaled_max_abs_err"])):
+        d = k[key]
         count = {"B1": "fine_raster_fwd", "B2": "fine_raster_bwd",
                  "B3": "lab_value_grad"}[key]
         rows.append({
@@ -3639,6 +3623,407 @@ def run_dist_flags(root, device):
     require(err <= TOL_DIST_FLAGS, "train_gdrn with --dist-* flags", losses)
     return {"loss_rel_err": err, "losses": losses, "wall_s": walls,
             "world_size": dist.world_size()}
+
+
+# ---- every GDR-Net architecture and the test-time PnP (phases 27-29) ------
+
+VARIANTS = ("darknet53_topdown", "pvnet_conv_point", "resnet34_fpn")
+VARIANT_STEPS = 10                # phase 27: bf16 stage-I steps timed
+VARIANT_CPU_BATCH = 2             # phase 27: fp32 card vs CPU, images a step
+VARIANT_LR = 1e-3                 # and its Ranger lr (no warm-up), as phase 10
+TOL_V_LOSS = 1e-4                 # phase 27: card vs CPU losses, relative
+TOL_V_PARAMS = 1e-4               # and parameters and BN statistics
+V2_TRAIN_ITERS = 2                # phase 29: train_gdrn iterations at V2
+PNP_PRED_ROIS = 8                 # phase 29: ROIs of the PnP on predictions
+# phase 29: --opts that select V2 on a config (variant_model's V2)
+V2_OPTS = ("model.backbone.name=pvnet_resnet18_8s",
+           "model.geo_head.name=ConvMaskXyzRegionHead",
+           "model.geo_head.num_feat_layers=2",
+           "model.pnp_net.name=SimplePointPnPNet",
+           "model.pnp_net.mask_attention=mul",
+           "model.pnp_net.trans_type=trans")
+# phase 29: PnP on the eval loader's ground-truth labels, held against the
+# ground-truth pose. The labels are a nearest-neighbour warp of a 128²
+# render of the crop: each object point lies up to one output pixel (s/o,
+# 0.6-1.3 frame pixels on the synthetic set) from the pixel centre PnP
+# pairs it with, so the ground-truth pose itself reprojects them ~0.5-1 px
+# off. The pose must fit the labels at least as well as the ground truth
+# does (reprojection RMS; PNP_FIT_SLACK for EPnP, which is not the
+# least-squares fit). One pixel at the rim of the set's objects (~20 px in
+# radius) is atan(1/20) = 2.9 degrees of rotation and 1/20 of the depth;
+# the ~1000 points of a mask average the independent part of the error
+# down, not the half-pixel part every point shares: the limits are a third
+# of those, PNP_MAX_DEG and PNP_MAX_T_REL (of the depth, for the
+# translation's norm). Crops under PNP_MIN_SIDE frame pixels (3 of the 96:
+# objects cut by the frame's edge) see a near-planar patch of the surface,
+# where the iterative solve can settle on a pose far from the truth that
+# fits the labels within a fraction of a pixel, as the reference's
+# cv2.solvePnP does on such patches (tests/test_torch_pnp.py::
+# test_small_crop_iterative: over 45 degrees off in both on five of sixteen
+# 7.5-px rim crops). They are reported, not held.
+PNP_MIN_SIDE = 24.0
+PNP_MAX_DEG = 1.0
+PNP_MAX_T_REL = 0.015
+PNP_FIT_SLACK = 1.05
+
+
+def variant_model(m, name):
+    """V1-V3 on the PoseNetConfig m (its widths, classes and the rest of
+    its heads): V1 darknet53_topdown (Darknet-53, the TopDown head with a
+    4x4 deconv and split out layers, ConvPnPNet with the mask concatenated,
+    the extent embedding and DropBlock 0.2, centroid_z_abs); V2
+    pvnet_conv_point (pvnet_resnet18_8s stopped at output_res, the conv
+    head with 2 layers, SimplePointPnPNet with the mask multiplied, trans);
+    V3 resnet34_fpn (resnet34 stages 1-4, the FPN neck at 256 channels, the
+    FPN head, ConvPnPNet)."""
+    r = dataclasses.replace
+    if name == "darknet53_topdown":
+        return r(m, backbone=r(m.backbone, name="darknet53"),
+                 geo_head=r(m.geo_head, deconv_kernel_size=4,
+                            out_layer_shared=False),
+                 pnp_net=r(m.pnp_net, mask_attention="concat",
+                           with_extent_feat=True, drop_prob=0.2,
+                           trans_type="centroid_z_abs"))
+    if name == "pvnet_conv_point":
+        return r(m, backbone=r(m.backbone, name="pvnet_resnet18_8s"),
+                 geo_head=r(m.geo_head, name="ConvMaskXyzRegionHead",
+                            num_feat_layers=2),
+                 pnp_net=r(m.pnp_net, name="SimplePointPnPNet",
+                           mask_attention="mul", trans_type="trans"))
+    if name == "resnet34_fpn":
+        return r(m, backbone=r(m.backbone, name="resnet34",
+                               out_indices=(1, 2, 3, 4)),
+                 neck="fpn", neck_out_channels=256,
+                 geo_head=r(m.geo_head, name="FPNMaskXyzRegionHead"))
+    raise ValueError(name)
+
+
+def variant_stage1_cfg(name, fp32=False):
+    """gdrn_flagship (256² -> 64², 13 classes, 24 images, Ranger, bf16)
+    with the variant's model; fp32: float32, VARIANT_CPU_BATCH images and
+    Ranger at VARIANT_LR without warm-up (phase 27's card vs CPU check)."""
+    from self6dpp_tpu_torch.config import gdrn_flagship
+    f = gdrn_flagship()
+    cfg = dataclasses.replace(f, exp_name=f"gdrn_{name}",
+                              model=variant_model(f.model, name))
+    if not fp32:
+        return cfg
+    return dataclasses.replace(
+        cfg, solver=dataclasses.replace(
+            cfg.solver, ims_per_batch=VARIANT_CPU_BATCH,
+            reference_bs=VARIANT_CPU_BATCH, base_lr=VARIANT_LR,
+            warmup_iters=0),
+        dist=dataclasses.replace(cfg.dist, compute_dtype="float32"))
+
+
+@contextlib.contextmanager
+def fixed_dropblock_seed():
+    """While active, every DropBlock draw is one seeded mask, made on the
+    CPU at the asked shape and moved to the asked device: the card and the
+    CPU drop the same blocks. Yields the count of draws."""
+    from self6dpp_tpu_torch.models import layers
+    draw = layers.dropblock_seed
+    calls = {"n": 0}
+
+    def fixed(generator, shape, gamma, dtype, device):
+        calls["n"] += 1
+        g = torch.Generator().manual_seed(SEED)
+        return draw(g, shape, gamma, dtype, torch.device("cpu")).to(device)
+    layers.dropblock_seed = fixed
+    try:
+        yield calls
+    finally:
+        layers.dropblock_seed = draw
+
+
+def check_variant_card_vs_cpu(name, device):
+    """Phase 27, first part: two float32 stage-I steps of the variant at
+    full width (variant_stage1_cfg(fp32=True): VARIANT_CPU_BATCH images,
+    BN in train mode) on the card (TF32 off, cuDNN deterministic) and on
+    the CPU (one thread), from one seeded start state, DropBlock fed one
+    seeded mask on both (fixed_dropblock_seed): losses within TOL_V_LOSS,
+    parameters and BN running statistics within TOL_V_PARAMS; both moved
+    past 10x it."""
+    cfg = variant_stage1_cfg(name, fp32=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    threads = torch.get_num_threads()
+    try:
+        with fixed_dropblock_seed() as drew:
+            init, init_bn, mg, pg, bg = run_stage1(cfg, device, 2)
+            torch.set_num_threads(1)
+            _, _, mc, pc, bc = run_stage1(cfg, torch.device("cpu"), 2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.set_num_threads(threads)
+    out = {"config": cfg.exp_name, "batch": VARIANT_CPU_BATCH,
+           "dropblock_draws": drew["n"], "losses_card": mg,
+           "losses_cpu": mc,
+           "loss_rel_err": max(loss_err(a, b) for a, b in zip(mg, mc)),
+           "params_card_vs_cpu_max_abs": max_abs_diff(pg, pc),
+           "bn_stats_card_vs_cpu_max_abs": max_abs_diff(bg, bc),
+           "params_moved_max_abs": max_abs_diff(pg, init),
+           "bn_stats_moved_max_abs": max_abs_diff(bg, init_bn)}
+    require(drew["n"] == (4 if cfg.model.pnp_net.drop_prob > 0 else 0),
+            f"{name}: DropBlock draws", drew["n"])
+    require(out["loss_rel_err"] <= TOL_V_LOSS, f"{name} fp32 losses", out)
+    require(out["params_card_vs_cpu_max_abs"] <= TOL_V_PARAMS
+            and out["bn_stats_card_vs_cpu_max_abs"] <= TOL_V_PARAMS,
+            f"{name} fp32 params / BN stats", out)
+    require(out["params_moved_max_abs"] > 10 * TOL_V_PARAMS
+            and out["bn_stats_moved_max_abs"] > 10 * TOL_V_PARAMS,
+            f"{name}: the steps left params or BN stats where they were",
+            out)
+    return out
+
+
+def run_variants_stage1(device):
+    """Phase 27: for V1-V3, check_variant_card_vs_cpu, then time_stage1 at
+    full width (24 images, bf16): ms per step with the forward, loss,
+    backward and optimizer_ema spans, images/s, peak memory; no kernel
+    launched, BN statistics moved."""
+    out = {}
+    for name in VARIANTS:
+        cpu = check_variant_card_vs_cpu(name, device)
+        timed = time_stage1(variant_stage1_cfg(name), device, S1_BATCH,
+                            VARIANT_STEPS)
+        out[name] = {"card_vs_cpu": cpu, "timed": timed}
+        print(f"stage-I {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def variant_stage2_cfg(dtype_name, lr=None):
+    """stage2_pose_flagship with V2 (pvnet_conv_point) as the student and
+    its EMA teacher (stage2_cfg's dtype and lr)."""
+    from self6dpp_tpu_torch.config import stage2_pose_flagship
+    f = stage2_pose_flagship()
+    base = dataclasses.replace(f, exp_name="stage2_pvnet_conv_point",
+                               model=variant_model(f.model,
+                                                   "pvnet_conv_point"))
+    return stage2_cfg(dtype_name, lr=lr, base=base)
+
+
+def run_stage2_checked(cfg, cfg32, build, device, cand_checks, name,
+                       check_inputs=None):
+    """Phases 24 and 28: a stage-II pose step (build(cfg, S2_BATCH,
+    device, seed=SEED) builds it) with
+      a. B1, B2 and B3 against their plain versions on one float32 step's
+         inputs (check_stage2_kernels), timed, with their bounds;
+      b. phase 6's fp32 checks (check_stage2_fp32);
+      c. one bf16 warm-up step held against the fp32 step's losses
+         (TOL_S2_BF16), then S5_TIMED_STEPS timed steps (time_stage2's
+         CUDA-event spans), the launch counts of B1, B2 and B3 set to 0
+         just before and read just after (one each a step), peak memory.
+    check_inputs, when given, is called on a's inputs. Returns (a's
+    record, b's record, c's record, the bf16 batch, the last step's
+    metrics)."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    built = build(cfg32, S2_BATCH, device)
+    with cand_order_checked(cand_checks):
+        inputs = stage2_inputs(cfg32, *built[1:])
+        if check_inputs is not None:
+            check_inputs(inputs)
+        kernels = check_stage2_kernels(cfg32, inputs)
+        del inputs
+        ref32, fp32 = check_stage2_fp32(cfg32, device, S2_BATCH, built,
+                                        build=build)
+    del built
+    model, state, batch, lpips = build(cfg, S2_BATCH, device)
+    step = se.make_self_train_step(cfg, model, lpips)
+    state, warm = step(state, batch)
+    torch.cuda.synchronize()
+    warm = {k: float(v) for k, v in warm.items()}
+    bf16_err = loss_err(warm, ref32)
+    require(bf16_err <= TOL_S2_BF16, f"{name} bf16 vs fp32 losses", warm,
+            ref32)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with scatter_counted() as scatters:
+        times, phases, metrics = timed_steps(step, state, batch,
+                                             S5_TIMED_STEPS)
+    launches = kernel_launches()
+    require(scatters["n"] == 0, f"the {name} step's B2 ran the scatter")
+    for kname, k in launches.items():
+        require(k == S2_LAUNCHES[kname] * S5_TIMED_STEPS,
+                f"{name} launches per step", kname, k)
+    for m in metrics:
+        require(all(torch.isfinite(v).item() for v in m.values()),
+                f"{name}: non-finite loss", m)
+    timed = {**summary(times, phases), "config": cfg.exp_name,
+             "batch": S2_BATCH, "classes": cfg.model.num_classes,
+             "faces": int(batch["mesh_faces"].shape[1]),
+             "compute_dtype": cfg.dist.compute_dtype,
+             "tile_px": cfg.renderer.tile_px,
+             "faces_per_tile": cfg.renderer.faces_per_tile,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": launches, "bf16_vs_fp32_loss_rel_err": bf16_err,
+             "last_losses": {k: float(v) for k, v in metrics[-1].items()}}
+    return kernels, fp32, timed, batch, metrics[-1]
+
+
+def run_variant_stage2(device, cand_checks):
+    """Phase 28: the stage-II pose step at stage2_pose_flagship (8 ROIs,
+    1280-face meshes, the whole loss suite, Ranger) with V2
+    (pvnet_conv_point) as the student and its EMA teacher
+    (run_stage2_checked)."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    cfg = variant_stage2_cfg("bfloat16")
+    cfg32 = variant_stage2_cfg("float32", lr=S2_LR)
+    k28, fp32, timed, _, last = run_stage2_checked(
+        cfg, cfg32, se.build_stage2, device, cand_checks, "V2 stage-II")
+    require({"loss_percep_obj", "loss_ms_ssim", "loss_chamfer"} <= set(last),
+            "V2 stage-II: the whole suite", sorted(last))
+    return k28, {"fp32": fp32, "timed": timed}
+
+
+def pnp_fit_rms(coor, mask, extent, center, side, K, R, t):
+    """The reprojection RMS (frame pixels) of pose (R, t) over the
+    correspondences pnp_from_xyz_mask builds from the map and mask."""
+    from self6dpp_tpu_torch.ops import pnp as P
+    o = coor.shape[0]
+    ys, xs = np.nonzero(mask > 0.5)
+    obj = (coor[ys, xs] - 0.5) * extent
+    img = np.stack([center[0] - side / 2 + (xs + 0.5) * side / o,
+                    center[1] - side / 2 + (ys + 0.5) * side / o], 1)
+    d = P.project(obj.astype(np.float64), np.asarray(R, np.float64),
+                  np.asarray(t, np.float64), np.asarray(K, np.float64)) - img
+    return float(np.sqrt((d ** 2).sum(1).mean()))
+
+
+def rot_err_deg(a, b):
+    c = (np.trace(np.asarray(a, np.float64).T @ b) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
+def run_variant_cli(root, device):
+    """Phase 29: the normal entry points with V2 (pvnet_conv_point) picked
+    by --opts (V2_OPTS on lm_base: 256² -> 64², 24 ROIs a batch, bf16, 2
+    classes of the synthetic set):
+      a. train_gdrn, V2_TRAIN_ITERS iterations on the train split (finite
+         losses, a checkpoint), then --eval-only over the test split's 96
+         ROIs from that checkpoint (every ROI scored, finite tables);
+      b. evaluator.pnp_from_xyz_mask, RANSAC and iterative, on every valid
+         ROI's ground-truth xyz and object-mask labels from the eval
+         loader: the pose fits the labels as well as the ground truth
+         does (PNP_FIT_SLACK), within PNP_MAX_DEG and PNP_MAX_T_REL of it,
+         on every crop of PNP_MIN_SIDE pixels or more (the smaller ones
+         recorded); host ms per ROI;
+      c. the same calls on the checkpoint's predicted maps (coor and the
+         mask probability) of the first eval batch's first PNP_PRED_ROIS
+         ROIs, timed, None counted (two iterations leave the mask probability near 0.5 over
+         the whole map: every pixel a correspondence, every RANSAC
+         iteration run)."""
+    from self6dpp_tpu_torch.config import (apply_overrides, gdrn_lm_base,
+                                           load_config)
+    from self6dpp_tpu_torch.engine import gdrn_engine as ge
+    from self6dpp_tpu_torch.engine.evaluator import (pnp_from_xyz_mask,
+                                                     to_device)
+    from self6dpp_tpu_torch.losses.mask_losses import get_mask_prob
+    from self6dpp_tpu_torch.tools import train_gdrn
+    base = gdrn_lm_base()
+    require(apply_overrides(base, list(V2_OPTS)).model
+            == variant_model(base.model, "pvnet_conv_point"),
+            "V2_OPTS select V2")
+    out = os.path.join(TRAIN_DIR, "gdrn_v2")
+    opts = syn_opts(root, out, *V2_OPTS)
+    argv = ["--config", "configs/gdrn/lm_base.py"] + opts + [
+        f"solver.total_iters={V2_TRAIN_ITERS}",
+        f"ckpt_period={V2_TRAIN_ITERS}"]
+    res, launches, by_h, _, wall = run_cli(train_gdrn.main, argv, device)
+    rows = read_metrics(res["metrics"])
+    check_finite_losses(rows, "train_gdrn V2", V2_TRAIN_ITERS)
+    require(type(res["state"].model.backbone).__name__ == "PVNetResNet8s"
+            and type(res["state"].model.pnp_net).__name__
+            == "SimplePointPnPNet", "train_gdrn --opts built V2")
+    ev, _, _, _, ev_wall = run_cli(
+        train_gdrn.main, ["--config", "configs/gdrn/lm_base.py",
+                          "--eval-only"] + opts, device)
+    t = ev["tables"]
+    n = int(sum(v["n"] for k, v in t.items() if k != "avg"))
+    require(n == 2 * SYN_IMAGES, "V2 test_gdrn: every ROI scored", n)
+    require(all(np.isfinite(list(v.values())).all() for v in t.values()),
+            "V2 test_gdrn: non-finite table", t)
+
+    cfg = apply_overrides(load_config("configs/gdrn/lm_base.py"), opts[1:])
+    ds, _, _ = train_gdrn.build_dataset(cfg, train=False, device=device)
+    model = ge.build_gdrn(cfg, device, seed=cfg.seed)
+    require(train_gdrn.load_latest_weights(train_gdrn.ckpt_dir(cfg), model),
+            "V2 checkpoint")
+    o = cfg.model.output_res
+    gt = {"ransac": [], "iterative": []}
+    pred = {"ransac": [], "iterative": []}
+    worst = {"rot_deg": 0.0, "t_rel": 0.0, "fit_ratio": 0.0}
+    small = []
+    for bi, batch in enumerate(ds.batches(cfg.solver.ims_per_batch)):
+        if bi == 0:
+            with torch.no_grad(), ge.autocast(cfg, device):
+                maps = model(*ge.model_inputs(to_device(batch, device)),
+                             forward_mode="geo")
+            coor = maps["coor"].float().cpu().numpy()
+            prob = get_mask_prob(maps["mask_logits"].float(),
+                                 cfg.model.loss.mask_loss_type)[..., 0]
+            prob = prob.cpu().numpy()
+        for i in np.nonzero(batch["_valid"])[0]:
+            side = o / float(batch["resize_ratio"][i])
+            args = (batch["roi_extent"][i], batch["roi_center"][i], side,
+                    batch["roi_cam"][i])
+            Rg, tg = batch["gt_rot"][i], batch["gt_trans"][i]
+            for kind, ransac in (("ransac", True), ("iterative", False)):
+                t0 = time.perf_counter()
+                res_gt = pnp_from_xyz_mask(batch["gt_xyz"][i],
+                                           batch["gt_mask_obj"][i], *args,
+                                           ransac=ransac)
+                gt[kind].append(time.perf_counter() - t0)
+                require(res_gt is not None, "PnP on GT labels: no pose", i)
+                R, tv = res_gt
+                fit = pnp_fit_rms(batch["gt_xyz"][i], batch["gt_mask_obj"][i],
+                                  *args, R, tv)
+                fit_gt = pnp_fit_rms(batch["gt_xyz"][i],
+                                     batch["gt_mask_obj"][i], *args, Rg, tg)
+                e_rot = rot_err_deg(R, Rg)
+                e_t = float(np.linalg.norm(tv - tg) / tg[2])
+                if side < PNP_MIN_SIDE:
+                    small.append({"side_px": side, "solver": kind,
+                                  "rot_deg": e_rot, "t_rel": e_t,
+                                  "fit_px": fit, "fit_gt_px": fit_gt})
+                else:
+                    worst["rot_deg"] = max(worst["rot_deg"], e_rot)
+                    worst["t_rel"] = max(worst["t_rel"], e_t)
+                    worst["fit_ratio"] = max(worst["fit_ratio"],
+                                             fit / fit_gt)
+                    require(fit <= PNP_FIT_SLACK * fit_gt
+                            and e_rot <= PNP_MAX_DEG
+                            and e_t <= PNP_MAX_T_REL, "PnP on GT labels",
+                            kind, i, fit, fit_gt, e_rot, e_t)
+                if bi or i >= PNP_PRED_ROIS:
+                    continue
+                t0 = time.perf_counter()
+                res_p = pnp_from_xyz_mask(coor[i], prob[i], *args,
+                                          ransac=ransac)
+                pred[kind].append((time.perf_counter() - t0, res_p is None))
+                require(res_p is None or (np.isfinite(res_p[0]).all()
+                                          and np.isfinite(res_p[1]).all()),
+                        "PnP on predicted maps: non-finite pose", kind, i)
+    n_gt = len(gt["ransac"])
+    require(n_gt == 2 * SYN_IMAGES, "PnP on GT labels: ROIs", n_gt)
+    ms = lambda v: float(np.median(v) * 1e3)
+    return {"config": "gdrn_lm_base + V2_OPTS", "opts": list(V2_OPTS),
+            "batch": 24, "iterations": V2_TRAIN_ITERS, "train_wall_s": wall,
+            "last_losses": loss_rows(rows)[-1],
+            **{f"train_{k}": v for k, v in loop_split(res, 24, rows).items()},
+            "eval_rois": n, "eval_wall_s": ev_wall, "avg": t["avg"],
+            **{f"eval_{k}": v for k, v in per_batch(ev["timings"], n).items()},
+            "pnp_gt_rois": n_gt, "pnp_gt_worst": worst,
+            "pnp_gt_small_crops": small,
+            "pnp_gt_ms_per_roi": {k: ms(v) for k, v in gt.items()},
+            "pnp_pred_ms_per_roi": {k: ms([a for a, _ in v])
+                                    for k, v in pred.items()},
+            "pnp_pred_none": {k: int(sum(b for _, b in v))
+                              for k, v in pred.items()},
+            "pnp_limits": {"rot_deg": PNP_MAX_DEG, "t_rel": PNP_MAX_T_REL,
+                           "fit_slack": PNP_FIT_SLACK}}
 
 
 def card_line() -> str:
@@ -3894,6 +4279,18 @@ def main(record_path: str = "") -> int:
     dist_flags = run_dist_flags(syn_root, device)
     print(f"train_gdrn --dist-*: {json.dumps(dist_flags)}", flush=True)
     clock["dist_flags_phase26_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    variants = run_variants_stage1(device)
+    clock["variants_stage1_phase27_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k28, v2_stage2 = run_variant_stage2(device, cand_checks)
+    print(f"V2 stage-II kernels vs plain: {json.dumps(k28)}", flush=True)
+    print(f"V2 stage-II steps: {json.dumps(v2_stage2)}", flush=True)
+    clock["variant_stage2_phase28_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v2_cli = run_variant_cli(syn_root, device)
+    print(f"train_gdrn V2 and PnP: {json.dumps(v2_cli)}", flush=True)
+    clock["variant_cli_pnp_phase29_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -3917,7 +4314,9 @@ def main(record_path: str = "") -> int:
               "train_yolov4": yolo, "jpeg_decode": jpeg,
               "ycbv_ss_textured_kernels": k24, "ycbv_ss_textured": textured,
               "gen_pseudo_poses": pseudo, "gen_pseudo_poses_b1": b1_pseudo,
-              "dist_flags": dist_flags, "clock": clock,
+              "dist_flags": dist_flags, "variants_stage1": variants,
+              "variant_stage2_kernels": k28, "variant_stage2": v2_stage2,
+              "variant_cli_pnp": v2_cli, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3948,8 +4347,12 @@ def main(record_path: str = "") -> int:
     kernels += train_kernel_lines(
         k21, self_train["timed"], b1_train_label,
         gdrn_train["b1_launches_by_height"][LABEL_RES])
-    kernels += textured_kernel_lines(k24, textured["timed"])
+    kernels += stage2_kernel_rows(k24, textured["timed"], "ycbv_ss_textured",
+                                  "ycbv_ss")
     kernels.append(gen_pseudo_kernel_line(b1_pseudo, pseudo))
+    kernels += stage2_kernel_rows(k28, v2_stage2["timed"],
+                                  "stage2_pvnet_conv_point",
+                                  "stage2_pvnet_conv_point")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,
@@ -4039,6 +4442,23 @@ def main(record_path: str = "") -> int:
                                    k: pseudo[k] for k in (
                                        "rois", "batches", "wall_s_kernel",
                                        "b1_launches_by_height")},
+                               "variant_stage1_steps": {
+                                   name: {k: v["timed"][k] for k in (
+                                       "config", "batch", "ms_per_step",
+                                       "ms_range", "images_per_s",
+                                       "phase_ms_median", "peak_mem_gib")}
+                                   for name, v in variants.items()},
+                               "variant_stage2_step": {
+                                   k: v2_stage2["timed"][k] for k in (
+                                       "config", "batch", "ms_per_step",
+                                       "phase_ms_median", "launches",
+                                       "peak_mem_gib")},
+                               "variant_cli_pnp": {
+                                   k: v2_cli[k] for k in (
+                                       "train_ms_per_iter", "eval_rois",
+                                       "eval_images_per_s", "pnp_gt_worst",
+                                       "pnp_gt_ms_per_roi",
+                                       "pnp_pred_ms_per_roi")},
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

@@ -15,19 +15,24 @@ from dataclasses import dataclass, field
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    # resnet{18,34,50,101}[d] | resnest{26,50}d | micro (only the ResNet
-    # family is ported)
+    # resnet{18,34,50,101}[d] | resnest{26,50}d | micro | darknet53 |
+    # pvnet_{resnet18,resnet34,resnet50,micro}_8s (dilated encoder-decoder)
     name: str = "resnest50d"
+    freeze: bool = False            # taken, read by neither package
+    pretrained: str = ""            # taken, read by neither package
     input_channels: int = 3
     out_indices: tuple[int, ...] = (4,)   # stage indices to return (4 = stride 32)
 
 
 @dataclass(frozen=True)
 class GeoHeadConfig:
+    # TopDownMaskXyzRegionHead | ConvMaskXyzRegionHead | FPNMaskXyzRegionHead
     name: str = "TopDownMaskXyzRegionHead"
+    freeze: bool = False            # taken, read by neither package
     up_types: tuple[str, ...] = ("deconv", "bilinear", "bilinear")
     deconv_kernel_size: int = 3
     num_conv_per_block: int = 2
+    num_feat_layers: int = 2        # ConvMaskXyzRegionHead trunk depth
     feat_dim: int = 256
     feat_kernel_size: int = 3
     norm: str = "GN"
@@ -48,11 +53,13 @@ class GeoHeadConfig:
 
 @dataclass(frozen=True)
 class PnPNetConfig:
-    name: str = "ConvPnPNet"        # ConvPnPNet | ConvPnPNetMaskNormVF
-    with_extent_feat: bool = False
+    # ConvPnPNet | ConvPnPNetMaskNormVF | SimplePointPnPNet
+    name: str = "ConvPnPNet"
+    with_extent_feat: bool = False  # the 3 -> 64 -> 128 extent embedding
+    freeze: bool = False            # taken, read by neither package
     featdim: int = 128
     rot_type: str = "allo_rot6d"    # allo_rot6d | ego_rot6d | allo_quat | ego_quat
-    trans_type: str = "centroid_z"
+    trans_type: str = "centroid_z"  # centroid_z | centroid_z_abs | trans
     z_type: str = "REL"             # REL | ABS
     num_stride2_layers: int = 3
     num_extra_layers: int = 0
@@ -63,6 +70,7 @@ class PnPNetConfig:
     flat_op: str = "flatten"        # flatten | avg | avg-max | avg-max-min
     denormalize_by_extent: bool = True
     with_2d_coord: bool = True
+    coord_2d_type: str = "abs"      # taken, read by neither package
     region_attention: bool = True
     mask_attention: str = "none"    # none | mul | concat
 
@@ -123,7 +131,9 @@ class PoseNetConfig:
     pnp_net: PnPNetConfig = field(default_factory=PnPNetConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     use_mtl: bool = False           # uncertainty multi-task loss weighting
+    # none | fpn (backbone.out_indices selects the pyramid's stages)
     neck: str = "none"
+    neck_out_channels: int = 256
 
 
 @dataclass(frozen=True)

@@ -10,18 +10,24 @@ pnp_key_map, _map_block), with its own copy of the maps:
   conv    flax (kh,kw,in,out)            -> torch (out,in,kh,kw)
   deconv  flax (kh,kw,in,out), applied by lax.conv_transpose without a
           spatial flip                   -> torch (in,out,kh,kw), flipped
+          (every kernel size: 2, 3, 4, ...)
   fc      flax (in,out)                  -> torch (out,in)
-  fc_flat as fc, with the input dim permuted from NHWC flatten order to the
-          NCHW order the port (like the reference) flattens in
+  fc_flat as fc, with the input dim's first h*w*c rows permuted from NHWC
+          flatten order to the NCHW order the port (like the reference)
+          flattens in; rows after them (ConvPnPNet's extent embedding)
+          stay
   dense   flax Dense (in,out)            -> torch 1x1 conv (out,in,1,1)
   bn      scale, bias (params), mean, var (batch_stats) -> weight, bias,
           running_mean, running_var
   gn      scale, bias                    -> weight, bias
   mtl     params['mtl'][term] (1,)       -> mtl.<term> (use_mtl)
-The GDRN's geo-head out layer and first PnP conv take whatever width the
-configuration gives them (the vf/norm channels of the MaskNormVF variant
-widen both). Raises on any flax leaf left unused and any torch key left
-unfilled.
+The GDRN maps cover every architecture the JAX GDRN builds: the ResNet,
+Darknet-53 and PVNet backbones, the FPN neck (lateral{i}, smooth{i}), the
+TopDown, conv and FPN geo heads with a shared or split (out_{k}) out
+layer, ConvPnPNet (with fc_extent1/2) and SimplePointPnPNet. The geo-head
+out layer and first PnP conv take whatever width the configuration gives
+them (the vf/norm channels of the MaskNormVF variant widen both). Raises
+on any flax leaf left unused and any torch key left unfilled.
 """
 
 from __future__ import annotations
@@ -96,28 +102,21 @@ def deepim_key_map(model: DeepIM) -> dict[str, tuple[str, str]]:
     return m
 
 
-def resnet_key_map(arch: str) -> dict[str, tuple[str, str]]:
-    """{timm module path: (kind, flax module path)} for ResNetBackbone: the
-    stem Conv_i/BatchNorm_i, then BasicBlock_i / Bottleneck_i over all
-    stages with their inner modules in call order."""
-    from .models.backbones.resnet import _STAGE_SPECS
-    kind, depths = _STAGE_SPECS[arch]
-    deep = arch.endswith("d")
-    if deep:
-        m = {"conv1.0": ("conv", "Conv_0"), "conv1.1": ("bn", "BatchNorm_0"),
-             "conv1.3": ("conv", "Conv_1"), "conv1.4": ("bn", "BatchNorm_1"),
-             "conv1.6": ("conv", "Conv_2"), "bn1": ("bn", "BatchNorm_2")}
-    else:
-        m = {"conv1": ("conv", "Conv_0"), "bn1": ("bn", "BatchNorm_0")}
+def _resnet_blocks(kind: str, widths, depths, cin: int, strides, deep: bool
+                   ) -> dict[str, tuple[str, str]]:
+    """The residual blocks of a ResNet (or PVNet) stage by stage: torch
+    layer{s}.{b} -> flax BasicBlock_i / Bottleneck_i (numbered over
+    all stages in call order) with their inner modules; strides: each
+    stage's first-block stride."""
+    m: dict[str, tuple[str, str]] = {}
     flax_block = "BasicBlock" if kind == "basic" else "Bottleneck"
-    widths = (8, 16, 32, 64) if arch == "micro" else (64, 128, 256, 512)
-    i, cin = 0, 64
+    i = 0
     for stage, (w, d) in enumerate(zip(widths, depths), start=1):
         cout = w if kind == "basic" else w * 4
         for b in range(d):
             t, f = f"layer{stage}.{b}", f"{flax_block}_{i}"
             i += 1
-            stride = 2 if (b == 0 and stage > 1) else 1
+            stride = strides[stage - 1] if b == 0 else 1
             has_down = stride != 1 or cin != cout
             cin = cout
             if kind == "basic":
@@ -150,49 +149,167 @@ def resnet_key_map(arch: str) -> dict[str, tuple[str, str]]:
     return m
 
 
-def geo_head_key_map(up_types=("deconv", "bilinear", "bilinear"),
-                     num_conv_per_block=2) -> dict[str, tuple[str, str]]:
-    """{'features.<i>' path: (kind, flax path)} for TopDownGeoHead."""
-    m: dict[str, tuple[str, str]] = {}
-    idx = nd = ncna = 0
-    for up in up_types:
-        if up == "deconv":
-            m[f"features.{idx}"] = ("deconv", f"ConvTranspose2x_{nd}.ConvTranspose_0")
-            m[f"features.{idx + 1}"] = ("gn", f"Norm_{nd}.GroupNorm_0")
-            nd += 1
-            idx += 3                              # deconv, norm, act
-        else:
-            idx += 1                              # parameter-free upsample
-        for _ in range(num_conv_per_block):
-            m[f"features.{idx}.conv"] = ("conv", f"ConvNormAct_{ncna}.Conv_0")
-            m[f"features.{idx}.gn"] = ("gn", f"ConvNormAct_{ncna}.Norm_0.GroupNorm_0")
-            ncna += 1
-            idx += 1
-    m["out_layer"] = ("conv", "Conv_0")           # shared mask|xyz|region conv
+def _widths(arch: str) -> tuple[int, ...]:
+    return (8, 16, 32, 64) if arch == "micro" else (64, 128, 256, 512)
+
+
+def resnet_key_map(arch: str) -> dict[str, tuple[str, str]]:
+    """{timm module path: (kind, flax module path)} for ResNetBackbone: the
+    stem Conv_i/BatchNorm_i, then BasicBlock_i / Bottleneck_i over all
+    stages with their inner modules in call order."""
+    from .models.backbones.resnet import _STAGE_SPECS
+    kind, depths = _STAGE_SPECS[arch]
+    deep = arch.endswith("d")
+    if deep:
+        m = {"conv1.0": ("conv", "Conv_0"), "conv1.1": ("bn", "BatchNorm_0"),
+             "conv1.3": ("conv", "Conv_1"), "conv1.4": ("bn", "BatchNorm_1"),
+             "conv1.6": ("conv", "Conv_2"), "bn1": ("bn", "BatchNorm_2")}
+    else:
+        m = {"conv1": ("conv", "Conv_0"), "bn1": ("bn", "BatchNorm_0")}
+    m.update(_resnet_blocks(kind, _widths(arch), depths, 64, (1, 2, 2, 2),
+                            deep))
     return m
 
 
-def pnp_key_map(num_layers: int) -> dict[str, tuple[str, str]]:
-    """{pnp_net path: (kind, flax path)} for ConvPnPNet."""
+def pvnet_key_map(arch: str, decoder: tuple[str, ...]
+                  ) -> dict[str, tuple[str, str]]:
+    """PVNetResNet8s: the stem Conv_0/BatchNorm_0, the blocks (stage
+    strides 1, 2, 1, 1), then the fc conv and the decoder's fusions
+    (`decoder`: the ones the model has, of conv8s, conv4s, conv2s,
+    convraw) as Conv_i/BatchNorm_i in call order."""
+    from .models.backbones.resnet import _STAGE_SPECS
+    kind, depths = _STAGE_SPECS[arch]
+    w = _widths(arch)
+    m = {"conv1": ("conv", "Conv_0"), "bn1": ("bn", "BatchNorm_0")}
+    m.update(_resnet_blocks(kind, w, depths, w[0], (1, 2, 1, 1), False))
+    for i, t in enumerate(("fc",) + decoder, start=1):
+        m[f"{t}.0"] = ("conv", f"Conv_{i}")
+        m[f"{t}.1"] = ("bn", f"BatchNorm_{i}")
+    return m
+
+
+def darknet_key_map(depths: tuple[int, ...]) -> dict[str, tuple[str, str]]:
+    """DarknetBackbone: stem -> _ConvUnit_0; layer{s}.0 (the downsample
+    unit) -> _ConvUnit_{s}; layer{s}.{j} -> _ResBlock_{i} (numbered over
+    all stages) with cv1, cv2 -> _ConvUnit_0, _ConvUnit_1."""
+    def unit(t, f):
+        return {f"{t}.conv": ("conv", f"{f}.Conv_0"),
+                f"{t}.bn": ("bn", f"{f}.BatchNorm_0")}
+    m = unit("stem", "_ConvUnit_0")
+    i = 0
+    for s, d in enumerate(depths, start=1):
+        m.update(unit(f"layer{s}.0", f"_ConvUnit_{s}"))
+        for j in range(1, d + 1):
+            m.update(unit(f"layer{s}.{j}.cv1", f"_ResBlock_{i}._ConvUnit_0"))
+            m.update(unit(f"layer{s}.{j}.cv2", f"_ResBlock_{i}._ConvUnit_1"))
+            i += 1
+    return m
+
+
+def _norm(norm: str, fpath: str) -> tuple[str, str]:
+    """The flax module of the JAX package's Norm at `fpath`."""
+    return ("gn", f"{fpath}.GroupNorm_0") if norm == "GN" \
+        else ("bn", f"{fpath}.BatchNorm_0")
+
+
+def _conv_norm_act(t: str, f: str, norm: str) -> dict[str, tuple[str, str]]:
+    return {f"{t}.conv": ("conv", f"{f}.Conv_0"),
+            f"{t}.gn": _norm(norm, f"{f}.Norm_0")}
+
+
+def _out_layers(gh) -> dict[str, tuple[str, str]]:
+    """The geo heads' shared out conv (Conv_0) or split out_{k} convs."""
+    if gh.out_layer_shared:
+        return {"out_layer": ("conv", "Conv_0")}
+    return {f"out_{k}": ("conv", f"out_{k}")
+            for k in ("mask", "xyz", "region", "vf", "norm")}
+
+
+def geo_head_key_map(gh, level_depths: list[int] | None = None
+                     ) -> dict[str, tuple[str, str]]:
+    """{geo_head_net path: (kind, flax path)} for the TopDown head and
+    ConvMaskXyzRegionHead (`features.<i>`) and FPNMaskXyzRegionHead
+    (`scale_heads.<level>.<j>`, level_depths[level] ConvModules a level),
+    with their out layer(s). The ConvModules are the flax head's
+    ConvNormAct_i in call order."""
     m: dict[str, tuple[str, str]] = {}
-    for i in range(num_layers):
+    if gh.name == "FPNMaskXyzRegionHead":
+        n = 0
+        for level, count in enumerate(level_depths):
+            for j in range(count):
+                m.update(_conv_norm_act(f"scale_heads.{level}.{j}",
+                                        f"ConvNormAct_{n}", gh.norm))
+                n += 1
+    elif gh.name == "ConvMaskXyzRegionHead":
+        for i in range(gh.num_feat_layers):
+            m.update(_conv_norm_act(f"features.{i}", f"ConvNormAct_{i}",
+                                    gh.norm))
+    else:
+        idx = nd = ncna = 0
+        for up in gh.up_types:
+            if up == "deconv":
+                m[f"features.{idx}"] = (
+                    "deconv", f"ConvTranspose2x_{nd}.ConvTranspose_0")
+                m[f"features.{idx + 1}"] = _norm(gh.norm, f"Norm_{nd}")
+                nd += 1
+                idx += 3                          # deconv, norm, act
+            else:
+                idx += 1                          # parameter-free upsample
+            for _ in range(gh.num_conv_per_block):
+                m.update(_conv_norm_act(f"features.{idx}",
+                                        f"ConvNormAct_{ncna}", gh.norm))
+                ncna += 1
+                idx += 1
+    m.update(_out_layers(gh))
+    return m
+
+
+def pnp_key_map(pn) -> dict[str, tuple[str, str]]:
+    """{pnp_net path: (kind, flax path)} for ConvPnPNet (with its extent
+    embedding) and SimplePointPnPNet."""
+    if pn.name == "SimplePointPnPNet":
+        names = ("pts_fc1", "pts_fc2", "pts_fc3", "fc1", "fc2")
+        m = {t: ("fc", f"Dense_{i}") for i, t in enumerate(names)}
+        m["fc_pose"] = ("fc", "fc_pose")
+        return m
+    m: dict[str, tuple[str, str]] = {}
+    for i in range(pn.num_stride2_layers + pn.num_extra_layers):
         m[f"features.{3 * i}"] = ("conv", f"Conv_{i}")
-        m[f"features.{3 * i + 1}"] = ("gn", f"Norm_{i}.GroupNorm_0")
+        m[f"features.{3 * i + 1}"] = _norm(pn.norm, f"Norm_{i}")
     m.update({"fc1": ("fc_flat", "Dense_0"), "fc2": ("fc", "Dense_1"),
-              "fc_r": ("fc", "fc_r"), "fc_t": ("fc", "fc_t")})
+              "fc_r": ("fc", "fc_r"), "fc_t": ("fc", "fc_t"),
+              "fc_extent1": ("fc", "fc_extent1"),
+              "fc_extent2": ("fc", "fc_extent2")})
     return m
 
 
 def gdrn_key_map(model) -> dict[str, tuple[str, str]]:
+    from .models.backbones.darknet import DarknetBackbone
+    from .models.backbones.pvnet import PVNetResNet8s
     c = model.cfg
+    bb = model.backbone
+    if isinstance(bb, DarknetBackbone):
+        back = darknet_key_map(bb.depths)
+    elif isinstance(bb, PVNetResNet8s):
+        back = pvnet_key_map(
+            c.backbone.name[len("pvnet_"):].removesuffix("_8s"),
+            tuple(n for n in ("conv8s", "conv4s", "conv2s", "convraw")
+                  if hasattr(bb, n)))
+    else:
+        back = resnet_key_map(c.backbone.name)
     m = {f"backbone.{k}": (kind, f"backbone.{v}")
-         for k, (kind, v) in resnet_key_map(c.backbone.name).items()}
+         for k, (kind, v) in back.items()}
+    if c.neck == "fpn":
+        for i in range(model.neck.levels):
+            for t in (f"lateral{i}", f"smooth{i}"):
+                m[f"neck.{t}"] = ("conv", f"neck.{t}")
+    gh = model.geo_head_net
+    depths = ([len(h) for h in gh.scale_heads]
+              if c.geo_head.name == "FPNMaskXyzRegionHead" else None)
     m.update({f"geo_head_net.{k}": (kind, f"geo_head.{v}") for k, (kind, v) in
-              geo_head_key_map(c.geo_head.up_types,
-                               c.geo_head.num_conv_per_block).items()})
-    n = c.pnp_net.num_stride2_layers + c.pnp_net.num_extra_layers
+              geo_head_key_map(c.geo_head, depths).items()})
     m.update({f"pnp_net.{k}": (kind, f"pnp_net.{v}")
-              for k, (kind, v) in pnp_key_map(n).items()})
+              for k, (kind, v) in pnp_key_map(c.pnp_net).items()})
     if c.use_mtl:
         m["mtl"] = ("mtl", "mtl")
     return m
@@ -221,8 +338,9 @@ def _to_torch_layout(a: np.ndarray, kind: str,
         return a.T[:, :, None, None]
     if kind == "fc_flat":
         h, w, ch = flat_hwc
-        cout = a.shape[1]
-        a = a.reshape(h, w, ch, cout).transpose(2, 0, 1, 3).reshape(-1, cout)
+        n, cout = h * w * ch, a.shape[1]
+        a = np.concatenate([a[:n].reshape(h, w, ch, cout).transpose(
+            2, 0, 1, 3).reshape(n, cout), a[n:]])
     return a.T
 
 
@@ -240,8 +358,9 @@ def _from_torch_layout(t: np.ndarray, kind: str,
     a = t.T
     if kind == "fc_flat":
         h, w, ch = flat_hwc
-        cout = a.shape[1]
-        a = a.reshape(ch, h, w, cout).transpose(1, 2, 0, 3).reshape(-1, cout)
+        n, cout = h * w * ch, a.shape[1]
+        a = np.concatenate([a[:n].reshape(ch, h, w, cout).transpose(
+            1, 2, 0, 3).reshape(n, cout), a[n:]])
     return a
 
 
@@ -336,10 +455,8 @@ def param_kinds(model) -> dict[str, str]:
 def gdrn_flax_to_state_dict(variables: Mapping, model) -> dict[str, torch.Tensor]:
     """variables: the JAX GDRN's {'params': ..., 'batch_stats': ...}.
     Returns a state_dict that the port's GDRN takes with strict=True."""
-    flat = _variables(variables)
-    pn = model.pnp_net
-    flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
-    return _convert(model, flat, gdrn_key_map(model), flat_hwc)
+    return _convert(model, _variables(variables), gdrn_key_map(model),
+                    getattr(model.pnp_net, "flat_hwc", None))
 
 
 def _state_dict_to_flax(sd: Mapping, key_map: dict[str, tuple[str, str]],
@@ -355,7 +472,8 @@ def _state_dict_to_flax(sd: Mapping, key_map: dict[str, tuple[str, str]],
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(a, dtype=np.float32)
+        # a copy: the model's tensors change in place as it trains
+        node[leaf] = np.array(a, dtype=np.float32, order="C")
     return tree
 
 
@@ -364,9 +482,8 @@ def gdrn_state_dict_to_flax(model, state_dict: Mapping | None = None) -> dict:
     variables {'params': ..., 'batch_stats': ...}, nested dicts of float32
     numpy arrays: the inverse of gdrn_flax_to_state_dict."""
     sd = model.state_dict() if state_dict is None else state_dict
-    pn = model.pnp_net
-    flat_hwc = (pn.flat_res, pn.flat_res, model.cfg.pnp_net.featdim)
-    return _state_dict_to_flax(sd, gdrn_key_map(model), flat_hwc)
+    return _state_dict_to_flax(sd, gdrn_key_map(model),
+                               getattr(model.pnp_net, "flat_hwc", None))
 
 
 def state_dict_to_flax(model: DeepIM, state_dict: Mapping | None = None

@@ -1,6 +1,7 @@
 """Evaluation: the inference loop, the per-object recall tables (ADD(-S),
 rotation and translation, projection, and with bop19 the BOP19 VSD / MSSD /
-MSPD average recalls), BOP CSV export and import (port of
+MSPD average recalls), BOP CSV export and import, and the test-time PnP
+from the predicted xyz map and mask (port of
 self6dpp_tpu/engine/evaluator.py).
 
 The errors of all instances of an object are computed in one batched call
@@ -22,6 +23,7 @@ import torch
 from .. import resolve_device
 from ..data.loader import ObjectModels
 from ..data.ref import DatasetMeta
+from ..ops import pnp as PNP
 from ..ops import pose_errors as PE
 
 # batch keys the evaluator reads on the host that never go to the device
@@ -276,3 +278,48 @@ def run_inference(eval_fn: Callable[[dict], dict], batches: Iterable[dict],
         evaluator.timings.append({"wait_s": wait, "step_s": dt})
         evaluator.process(batch, out)
     return evaluator
+
+
+# ---------------------------------------------------------------------------
+# PnP post-processing (host, test time)
+# ---------------------------------------------------------------------------
+
+def pnp_from_xyz_mask(coor: np.ndarray, mask_prob: np.ndarray,
+                      extents: np.ndarray, roi_center: np.ndarray,
+                      roi_wh_crop: float, K: np.ndarray,
+                      mask_thresh: float = 0.5, min_pts: int = 8,
+                      ransac: bool = True):
+    """Predicted xyz map + mask -> 2D-3D correspondences -> PnP
+    (gdrn_evaluator.py's get_img_model_points_with_coords2d + pnp_v2).
+    coor (o, o, 3) in [0, 1]; mask_prob (o, o); extents (3,); the ROI's
+    centre and side in the frame; K (3, 3). Each pixel above mask_thresh
+    gives its centre mapped into the frame and its object point, the
+    coordinates denormalised by the extents. ransac: EPnP in RANSAC, then
+    EPnP on the inliers (ops/pnp.py::pnp_ransac, its draws from a numpy
+    generator seeded 0 on each call); else SOLVEPNP_ITERATIVE
+    (pnp_iterative). Returns (R (3, 3), t (3,)) in float32, or None with
+    fewer than min_pts pixels or when the solver finds no pose."""
+    o = coor.shape[0]
+    sel = mask_prob > mask_thresh
+    if sel.sum() < min_pts:
+        return None
+    ys, xs = np.nonzero(sel)
+    obj_pts = ((coor[ys, xs] - 0.5) * extents).astype(np.float64)
+    scale = roi_wh_crop / o
+    x1 = roi_center[0] - roi_wh_crop / 2
+    y1 = roi_center[1] - roi_wh_crop / 2
+    img_pts = np.stack([x1 + (xs + 0.5) * scale,
+                        y1 + (ys + 0.5) * scale], axis=1).astype(np.float64)
+    K = np.asarray(K, np.float64)
+    if ransac:
+        res = PNP.pnp_ransac(obj_pts, img_pts, K, np.random.default_rng(0))
+        res = None if res is None else res[:2]
+    else:
+        res = PNP.pnp_iterative(obj_pts, img_pts, K)
+    if res is None:
+        return None
+    R, t = res
+    # through the rotation vector, as the reference returns cv2.Rodrigues
+    # of solvePnP's rvec
+    R = PNP.rodrigues(PNP.rodrigues_inv(R))
+    return R.astype(np.float32), t.reshape(3).astype(np.float32)

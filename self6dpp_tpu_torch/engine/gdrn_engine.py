@@ -67,10 +67,10 @@ def autocast(cfg: Config, device: torch.device):
 def init_weights_(model: GDRN, generator: torch.Generator) -> GDRN:
     """Draw the weights as the JAX package's initialisers do: LeCun normal
     (truncated) for convs, transposed convs and dense layers, zero biases;
-    N(0, 0.01) for the geo head's out layer and the pose outputs, N(0, 1e-3)
-    for the PnP convs and hidden dense layers; norms at scale 1, bias 0 and
-    BN statistics (0, 1). Drawn in float32 on the CPU, whatever the model's
-    device."""
+    N(0, 0.01) for the geo head's out layer(s) and the pose outputs,
+    N(0, 1e-3) for the PnP convs and hidden dense layers; norms at scale 1,
+    bias 0 and BN statistics (0, 1). Drawn in float32 on the CPU, whatever
+    the model's device."""
     def draw(shape, std, trunc):
         w = torch.empty(shape)
         if trunc:
@@ -86,8 +86,8 @@ def init_weights_(model: GDRN, generator: torch.Generator) -> GDRN:
                 fan_in = w.shape[0] * w.shape[2] * w.shape[3]
             else:
                 fan_in = math.prod(w.shape[1:])
-            if name == "geo_head_net.out_layer" or name in ("pnp_net.fc_r",
-                                                            "pnp_net.fc_t"):
+            if name.startswith("geo_head_net.out_") or name in (
+                    "pnp_net.fc_r", "pnp_net.fc_t", "pnp_net.fc_pose"):
                 new = draw(w.shape, 0.01, False)
             elif id(m) in pnp:
                 new = draw(w.shape, 1e-3, False)
@@ -113,6 +113,18 @@ def build_gdrn(cfg: Config, device=None, seed: int | None = None) -> GDRN:
     if seed is not None:
         init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(resolve_device(device)).eval()
+
+
+def dropout_generator(cfg: Config, step: int, device
+                      ) -> torch.Generator | None:
+    """The generator of one step's DropBlock draws (where the JAX steps
+    pass rngs={'dropout': rng}), on `device`, seeded from cfg.seed and the
+    step number; None when the PnP head's drop_prob is 0, so that no
+    configuration without DropBlock makes one."""
+    if cfg.model.pnp_net.drop_prob <= 0:
+        return None
+    g = torch.Generator(device=device)
+    return g.manual_seed((cfg.seed << 32) + step)
 
 
 def init_state(cfg: Config, model: nn.Module) -> TrainState:
@@ -151,9 +163,10 @@ def make_train_step(cfg: Config, model: GDRN):
     trains (its running statistics move), the teacher follows by EMA at
     ema_decay_schedule(solver.ema_decay, solver.ema_warmup_iters) of the
     step count (which counts micro-batches under accumulation, as the JAX
-    state's does). metrics holds every loss term and total_loss as 0-d
-    tensors; mark(name), if given, is called after the forward, the loss,
-    the backward and the optimizer + EMA."""
+    state's does). DropBlock (drop_prob > 0) draws from
+    dropout_generator(cfg, step count). metrics holds every loss term and
+    total_loss as 0-d tensors; mark(name), if given, is called after the
+    forward, the loss, the backward and the optimizer + EMA."""
     decay_fn = ema_decay_schedule(cfg.solver.ema_decay,
                                   cfg.solver.ema_warmup_iters)
     gh = cfg.model.geo_head
@@ -163,7 +176,8 @@ def make_train_step(cfg: Config, model: GDRN):
         net = state.model.train()
         dev = next(net.parameters()).device
         with autocast(cfg, dev):
-            out = net(*model_inputs(batch))
+            out = net(*model_inputs(batch),
+                      generator=dropout_generator(cfg, state.step, dev))
         out = {k: v.float() for k, v in out.items()}
         mark("forward")
         ld = gdrn_loss(cfg.model.loss, cfg.model.pnp_net, out, batch,

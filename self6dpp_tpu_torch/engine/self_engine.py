@@ -59,8 +59,8 @@ from ..ops.rasterizer import (compute_vertex_normals, rasterize_batch,
 from ..ops.warp import affine_warp, sample_pose_variated_affines
 from ..ops.zoom import zoom_K
 from .deepim_engine import make_refine_fn, to_device
-from .gdrn_engine import (autocast, build_gdrn, descend, init_state,
-                          model_inputs, no_mark)
+from .gdrn_engine import (autocast, build_gdrn, descend, dropout_generator,
+                          init_state, model_inputs, no_mark)
 from .train_state import TrainState, gated_ema_decay
 
 def roi_zoom_K(batch: dict[str, Tensor], input_res: int,
@@ -129,7 +129,8 @@ def student_teacher(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     net = state.model.eval()
     with autocast(cfg, dev):
         out = net(*model_inputs(student_batch or batch),
-                  forward_mode=forward_mode)
+                  forward_mode=forward_mode,
+                  generator=dropout_generator(cfg, state.step, dev))
     out = {k: v.float() for k, v in out.items()}
     mark("student_fwd")
     with autocast(cfg, dev), torch.no_grad():
@@ -404,8 +405,10 @@ def make_synsup_train_step(cfg: Config, model: GDRN,
     def train_step(state: TrainState, batch: dict[str, Tensor], mark=None):
         mark = mark or no_mark
         net = state.model.eval()
-        with autocast(cfg, next(net.parameters()).device):
-            out = net(*model_inputs(batch))
+        dev = next(net.parameters()).device
+        with autocast(cfg, dev):
+            out = net(*model_inputs(batch),
+                      generator=dropout_generator(cfg, state.step, dev))
         out = {k: v.float() for k, v in out.items()}
         mark("student_fwd")
         ld = gdrn_loss(cfg.model.loss, cfg.model.pnp_net, out, batch,
@@ -466,19 +469,36 @@ def stage2_batch(cfg: Config, batch_size: int, device, seed: int = 0,
 @torch.no_grad()
 def aim_heads_(model: GDRN, batch: dict[str, Tensor]) -> None:
     """Bias the network's first outputs toward a usable stage-II start: an
-    identity allocentric rotation, the batch's median relative depth (so
-    the rendered mesh is in view) and a mask logit of 10 (the teacher's
-    pseudo mask then covers the ROI). Under the JAX package's
-    initialisation the predicted depth is about 0 and the render empty."""
-    if model.cfg.pnp_net.rot_type != "allo_rot6d" or \
-            model.cfg.pnp_net.z_type != "REL":
-        raise ValueError("aim_heads_ takes allo_rot6d with a REL depth")
+    identity allocentric rotation, a translation term that puts the mesh
+    in view (centroid_z: the batch's median relative depth; centroid_z_abs:
+    the median ROI centre and depth; trans: the median translation) and a
+    mask logit of 10 (the teacher's pseudo mask then covers the ROI).
+    Under the JAX package's initialisation the predicted depth is about 0
+    and the render empty."""
+    pn_cfg = model.cfg.pnp_net
+    if pn_cfg.rot_type != "allo_rot6d" or (
+            pn_cfg.trans_type == "centroid_z" and pn_cfg.z_type != "REL"):
+        raise ValueError("aim_heads_ takes allo_rot6d (with a REL depth "
+                         "for centroid_z)")
+    gt_t = batch["gt_trans"]
+    if pn_cfg.trans_type == "centroid_z":
+        t = torch.zeros(3, device=gt_t.device)
+        t[2] = (gt_t[:, 2] / batch["resize_ratio"]).median()
+    elif pn_cfg.trans_type == "centroid_z_abs":
+        c = batch["roi_center"].median(0).values
+        t = torch.stack([c[0], c[1], gt_t[:, 2].median()])
+    else:
+        t = gt_t.median(0).values
+    rot = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=gt_t.device)
     pn = model.pnp_net
-    pn.fc_r.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0]))
-    z_rel = (batch["gt_trans"][:, 2] / batch["resize_ratio"]).median()
-    pn.fc_t.bias.zero_()
-    pn.fc_t.bias[2] = z_rel
-    model.geo_head_net.out_layer.bias[0] = 10.0
+    if hasattr(pn, "fc_pose"):
+        pn.fc_pose.bias.copy_(torch.cat([rot, t]))
+    else:
+        pn.fc_r.bias.copy_(rot)
+        pn.fc_t.bias.copy_(t)
+    gh = model.geo_head_net
+    out = gh.out_layer if hasattr(gh, "out_layer") else gh.out_mask
+    out.bias[0] = 10.0
 
 
 def build_stage2(cfg: Config | None = None, batch_size: int = 8, device=None,

@@ -46,11 +46,16 @@ def _downsample(cin: int, cout: int, stride: int, avg_down: bool) -> nn.Module:
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, c: int, stride: int = 1, avg_down: bool = False):
+    """Two 3x3 convs; dilation > 1 (the dilated-8s PVNet stages) pads and
+    dilates both by it."""
+
+    def __init__(self, cin: int, c: int, stride: int = 1, avg_down: bool = False,
+                 dilation: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, c, 3, stride, 1, bias=False)
+        d = dilation
+        self.conv1 = nn.Conv2d(cin, c, 3, stride, d, dilation=d, bias=False)
         self.bn1 = _bn(c)
-        self.conv2 = nn.Conv2d(c, c, 3, 1, 1, bias=False)
+        self.conv2 = nn.Conv2d(c, c, 3, 1, d, dilation=d, bias=False)
         self.bn2 = _bn(c)
         self.downsample = (_downsample(cin, c, stride, avg_down)
                            if cin != c or stride != 1 else None)
@@ -90,10 +95,11 @@ class SplitAttn(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Bottleneck of width w (output 4w); with `splat` the ResNeSt block."""
+    """Bottleneck of width w (output 4w); with `splat` the ResNeSt block;
+    dilation > 1 pads and dilates the 3x3 conv by it."""
 
     def __init__(self, cin: int, w: int, stride: int = 1, avg_down: bool = False,
-                 splat: bool = False):
+                 splat: bool = False, dilation: int = 1):
         super().__init__()
         cout = w * 4
         self.conv1 = nn.Conv2d(cin, w, 1, bias=False)
@@ -102,7 +108,8 @@ class Bottleneck(nn.Module):
             self.conv2 = SplitAttn(w)
             self.avd_last = nn.AvgPool2d(3, stride, 1) if stride != 1 else None
         else:
-            self.conv2 = nn.Conv2d(w, w, 3, stride, 1, bias=False)
+            self.conv2 = nn.Conv2d(w, w, 3, stride, dilation,
+                                   dilation=dilation, bias=False)
             self.bn2 = _bn(w)
         self.splat = splat
         self.conv3 = nn.Conv2d(w, cout, 1, bias=False)
@@ -146,6 +153,7 @@ class ResNetBackbone(nn.Module):
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         widths = (8, 16, 32, 64) if arch == "micro" else (64, 128, 256, 512)
         cin = 64
+        self.feature_channels = []      # of each returned feature
         for stage, (w, d) in enumerate(zip(widths, depths), start=1):
             blocks = []
             for b in range(d):
@@ -158,6 +166,8 @@ class ResNetBackbone(nn.Module):
                                              splat=kind == "splat"))
                     cin = w * 4
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
+            if stage in self.out_indices:
+                self.feature_channels.append(cin)
         self.out_channels = cin
 
     def forward(self, x: Tensor):

@@ -1,17 +1,23 @@
-"""GDR-Net: backbone -> top-down geo head -> Patch-PnP -> differentiable
-pose (port of self6dpp_tpu/models/gdrn.py for the ResNet/ResNeSt backbones,
-the TopDownMaskXyzRegionHead with its double-mask, vf and norm outputs,
-and ConvPnPNet / ConvPnPNetMaskNormVF).
+"""GDR-Net: backbone -> optional neck -> geo head -> Patch-PnP ->
+differentiable pose (port of self6dpp_tpu/models/gdrn.py): every
+architecture the JAX GDRN builds. Backbones: the ResNet/ResNeSt family,
+darknet53 and pvnet_{arch}_8s; neck: none or fpn; geo heads: the TopDown
+head (on the coarsest feature, with its double-mask, vf and norm outputs),
+ConvMaskXyzRegionHead (on the finest) and FPNMaskXyzRegionHead (on the
+whole pyramid); PnP heads: ConvPnPNet, ConvPnPNetMaskNormVF and
+SimplePointPnPNet; translation decodings: centroid_z, centroid_z_abs and
+trans.
 
 Batch norm trains as Flax's does (models/layers.py::FlaxBatchNorm2d) in
-train mode; with use_mtl the model holds the multi-task log variances
-(`mtl`, one per loss term of losses/gdrn_loss.py::MTL_TERMS), which the
-JAX package keeps under params['mtl'].
+train mode; DropBlock in the PnP head draws from the generator forward is
+given, in train mode only. With use_mtl the model holds the multi-task log
+variances (`mtl`, one per loss term of losses/gdrn_loss.py::MTL_TERMS),
+which the JAX package keeps under params['mtl'].
 
 Inputs and outputs keep the JAX package's NHWC layout (roi_img (B,S,S,3),
 roi_coord_2d (B,o,o,2), dense outputs (B,o,o,C)); inside, the network runs
-NCHW. Submodule names (backbone, geo_head_net, pnp_net) are the reference
-checkpoint's.
+NCHW. Submodule names (backbone, neck, geo_head_net, pnp_net) are the
+reference checkpoint's.
 """
 
 from __future__ import annotations
@@ -21,41 +27,69 @@ from torch import Tensor, nn
 
 from ..config import PoseNetConfig
 from ..losses.gdrn_loss import MTL_TERMS
+from ..losses.mask_losses import get_mask_prob
 from ..ops import pose_decode
+from .backbones.darknet import DarknetBackbone
+from .backbones.pvnet import PVNetResNet8s
 from .backbones.resnet import ResNetBackbone
-from .heads.conv_pnp_net import ConvPnPNet
-from .heads.top_down_head import TopDownGeoHead, gather_class_aware
+from .heads.conv_pnp_net import ConvPnPNet, SimplePointPnPNet
+from .heads.top_down_head import (ConvGeoHead, FPNGeoHead, TopDownGeoHead,
+                                  gather_class_aware)
+from .necks import FPN
+
+
+def build_backbone(c: PoseNetConfig) -> nn.Module:
+    """The backbone by name (JAX gdrn.py's dispatch): darknet53 with the
+    out_indices shifted by one, pvnet_{arch}_8s with its decoder stopped at
+    input_res // output_res, else a ResNet."""
+    b = c.backbone
+    if b.name == "darknet53":
+        return DarknetBackbone(b.input_channels, out_indices=tuple(
+            i + 1 for i in b.out_indices))
+    if b.name.startswith("pvnet_"):
+        arch = b.name[len("pvnet_"):].removesuffix("_8s")
+        return PVNetResNet8s(arch, b.input_channels,
+                             out_stride=max(1, c.input_res // c.output_res))
+    return ResNetBackbone(b.name, b.input_channels, b.out_indices)
 
 
 class GDRN(nn.Module):
     def __init__(self, cfg: PoseNetConfig):
         super().__init__()
         c = cfg
-        if c.neck != "none" or c.geo_head.name != "TopDownMaskXyzRegionHead" \
-                or c.pnp_net.name not in ("ConvPnPNet", "ConvPnPNetMaskNormVF"):
-            raise ValueError("only the ResNet backbone, TopDownMaskXyzRegionHead "
-                             "and ConvPnPNet(MaskNormVF) without a neck are "
-                             "ported")
-        if c.pnp_net.trans_type != "centroid_z":
-            raise ValueError(f"trans_type {c.pnp_net.trans_type!r} belongs to "
-                             "a later slice")
-        self.cfg = cfg
-        self.backbone = ResNetBackbone(c.backbone.name,
-                                       c.backbone.input_channels,
-                                       c.backbone.out_indices)
-        self.geo_head_net = TopDownGeoHead(c.geo_head,
-                                           self.backbone.out_channels,
-                                           c.num_classes)
         gh, pn = c.geo_head, c.pnp_net
+        if c.neck not in ("none", "fpn"):
+            raise ValueError(f"unknown neck: {c.neck!r}")
+        if pn.trans_type not in ("centroid_z", "centroid_z_abs", "trans"):
+            raise ValueError(f"unknown trans_type: {pn.trans_type}")
+        self.cfg = cfg
+        self.backbone = build_backbone(c)
+        chans = list(self.backbone.feature_channels)
+        if c.neck == "fpn":
+            self.neck = FPN(chans, c.neck_out_channels)
+            chans = self.neck.feature_channels
+        if gh.name == "FPNMaskXyzRegionHead":
+            strides = tuple(2 ** (i + 1) for i in c.backbone.out_indices)
+            self.geo_head_net = FPNGeoHead(gh, chans, strides, c.num_classes)
+        elif gh.name == "ConvMaskXyzRegionHead":
+            self.geo_head_net = ConvGeoHead(gh, chans[0], c.num_classes)
+        else:
+            self.geo_head_net = TopDownGeoHead(gh, chans[-1], c.num_classes)
         region = gh.num_regions if pn.region_attention else 0
         nin = 3 + (2 if pn.with_2d_coord else 0) + region
+        nin += 1 if pn.mask_attention == "concat" else 0
         if pn.name == "ConvPnPNetMaskNormVF":
             # the vf and norm maps join the PnP input (class slices)
             if not (gh.with_vf or gh.with_norm):
                 raise ValueError("ConvPnPNetMaskNormVF needs with_vf/with_norm")
             nin += 4 * gh.num_vf_points * gh.with_vf + 3 * gh.with_norm
         rot_dim = 6 if pn.rot_type.endswith("rot6d") else 4
-        self.pnp_net = ConvPnPNet(pn, nin, c.output_res, rot_dim)
+        if pn.name == "SimplePointPnPNet":
+            self.pnp_net = SimplePointPnPNet(pn, nin, rot_dim)
+        elif pn.name in ("ConvPnPNet", "ConvPnPNetMaskNormVF"):
+            self.pnp_net = ConvPnPNet(pn, nin, c.output_res, rot_dim)
+        else:
+            raise KeyError(pn.name)
         if c.use_mtl:
             self.mtl = nn.ParameterDict(
                 {k: nn.Parameter(torch.zeros(1)) for k in MTL_TERMS})
@@ -63,13 +97,28 @@ class GDRN(nn.Module):
     def forward(self, roi_img: Tensor, roi_cls: Tensor, roi_cam: Tensor,
                 roi_center: Tensor, roi_wh: Tensor, roi_extent: Tensor,
                 resize_ratio: Tensor, roi_coord_2d: Tensor | None = None,
-                forward_mode: str = "all") -> dict[str, Tensor]:
+                forward_mode: str = "all",
+                generator: torch.Generator | None = None
+                ) -> dict[str, Tensor]:
+        """generator: the PnP head's DropBlock draws (train mode with
+        drop_prob > 0; otherwise nothing is drawn)."""
         c = self.cfg
         gh, pn = c.geo_head, c.pnp_net
         feat = self.backbone(roi_img.permute(0, 3, 1, 2))
-        if isinstance(feat, list):
-            feat = feat[-1]            # the top-down head takes the coarsest
-        maps = self.geo_head_net(feat)
+        if c.neck == "fpn":
+            feat = self.neck(feat if isinstance(feat, list) else [feat])
+        if gh.name == "FPNMaskXyzRegionHead":
+            if not isinstance(feat, list):
+                raise ValueError("the FPN head needs backbone.out_indices "
+                                 "selecting a pyramid")
+            maps = self.geo_head_net(feat)
+        else:
+            if isinstance(feat, list):
+                # the top-down head takes the coarsest level (its up-blocks
+                # bring it to output_res), the plain conv head the finest
+                feat = feat[0] if gh.name == "ConvMaskXyzRegionHead" \
+                    else feat[-1]
+            maps = self.geo_head_net(feat)
         maps = gather_class_aware(maps, gh, c.num_classes, roi_cls)
 
         out: dict[str, Tensor] = {}
@@ -102,20 +151,32 @@ class GDRN(nn.Module):
             coor_feat = torch.cat([coor_feat, roi_coord_2d.to(coor.dtype)], -1)
         region_atten = (torch.softmax(maps["region"][..., 1:], dim=-1)
                         if pn.region_attention else None)
+        mask_atten = (get_mask_prob(maps["mask"], c.loss.mask_loss_type)
+                      if pn.mask_attention != "none" else None)
         extra = None
         if pn.name == "ConvPnPNetMaskNormVF":
             extra = torch.cat([maps[k] for k in ("vf", "norm") if k in maps], -1)
         rot_rep, pred_t = self.pnp_net(coor_feat, region=region_atten,
-                                       extents=roi_extent, extra_feat=extra)
+                                       extents=roi_extent,
+                                       mask_attention=mask_atten,
+                                       extra_feat=extra, generator=generator)
         # the pose is decoded in float32 whatever the compute dtype: the
         # render and the pose losses take it in float32
         with torch.autocast(rot_rep.device.type, enabled=False):
             rot_rep, pred_t = rot_rep.float(), pred_t.float()
             rot_m = pose_decode.rot_rep_to_mat(rot_rep, pn.rot_type)
-            rot, trans = pose_decode.pose_from_centroid_z(
-                rot_m, pred_t[:, :2], pred_t[:, 2:3], roi_cam, roi_center,
-                resize_ratio, roi_wh, is_allo="allo" in pn.rot_type,
-                z_type=pn.z_type)
+            is_allo = "allo" in pn.rot_type
+            if pn.trans_type == "centroid_z":
+                rot, trans = pose_decode.pose_from_centroid_z(
+                    rot_m, pred_t[:, :2], pred_t[:, 2:3], roi_cam, roi_center,
+                    resize_ratio, roi_wh, is_allo=is_allo, z_type=pn.z_type)
+            elif pn.trans_type == "centroid_z_abs":
+                rot, trans = pose_decode.pose_from_centroid_z_abs(
+                    rot_m, pred_t[:, :2], pred_t[:, 2:3], roi_cam,
+                    is_allo=is_allo)
+            else:
+                rot, trans = pose_decode.pose_from_trans(rot_m, pred_t,
+                                                         is_allo=is_allo)
         out.update({"rot": rot, "trans": trans, "rot_allo": rot_m,
                     "pred_t_net": pred_t})
         return out

@@ -1,12 +1,14 @@
-"""Patch-PnP head: dense geometry maps -> (rot_rep, centroid + z) (port of
-self6dpp_tpu/models/heads/conv_pnp_net.py::ConvPnPNet, which is also the
-trunk of ConvPnPNetMaskNormVF: the predicted vf and norm maps join its
-input after the mask attention, as extra_feat).
+"""Patch-PnP heads: dense geometry maps -> (rot_rep, translation terms)
+(port of self6dpp_tpu/models/heads/conv_pnp_net.py): ConvPnPNet, which is
+also the trunk of ConvPnPNetMaskNormVF (the predicted vf and norm maps
+join its input after the mask attention, as extra_feat), and the
+point-net style SimplePointPnPNet.
 
-Module names follow the reference ConvPnPNet: `features` (conv, norm, act
-per stride-2 layer), fc1, fc2, fc_r, fc_t. Inputs are NHWC, as in the JAX
-package; the 'flatten' op flattens NCHW (C-major), as the reference does,
-and convert.py permutes the JAX package's NHWC-order fc1 to match.
+ConvPnPNet's module names follow the reference ConvPnPNet: `features`
+(conv, norm, act per stride-2 layer), fc1, fc2, fc_r, fc_t, and the extent
+embedding fc_extent1, fc_extent2. Inputs are NHWC, as in the JAX package;
+the 'flatten' op flattens NCHW (C-major), as the reference does, and
+convert.py permutes the JAX package's NHWC-order fc1 to match.
 """
 
 from __future__ import annotations
@@ -15,18 +17,44 @@ import torch
 from torch import Tensor, nn
 
 from ...config import PnPNetConfig
-from ..layers import Norm, get_act
+from ..layers import DropBlock, Norm, get_act
+
+
+def pnp_input(cfg: PnPNetConfig, coor_feat: Tensor, extents: Tensor | None
+              ) -> Tensor:
+    """coor_feat with its xyz denormalised by the extents when the
+    configuration asks (and the feature is xyz, with or without the 2D
+    coordinates)."""
+    if (cfg.denormalize_by_extent and extents is not None
+            and coor_feat.shape[-1] in (3, 5)):
+        xyz = (coor_feat[..., :3] - 0.5) * extents[:, None, None, :]
+        coor_feat = torch.cat([xyz, coor_feat[..., 3:]], dim=-1)
+    return coor_feat
+
+
+def attend(cfg: PnPNetConfig, x: Tensor, mask_attention: Tensor | None
+           ) -> Tensor:
+    """The mask attention: x times the mask probability ('mul') or the
+    probability as more channels ('concat')."""
+    if cfg.mask_attention == "mul":
+        return x * mask_attention
+    if cfg.mask_attention == "concat":
+        return torch.cat([x, mask_attention.to(x.dtype)], -1)
+    if cfg.mask_attention != "none":
+        raise ValueError(f"unknown mask_attention: {cfg.mask_attention!r}")
+    return x
 
 
 class ConvPnPNet(nn.Module):
     def __init__(self, cfg: PnPNetConfig, in_channels: int, in_res: int,
                  rot_dim: int = 6):
+        """in_channels: the assembled input's channels (xyz, 2D
+        coordinates, region attention, the mask when concatenated, the
+        extra maps)."""
         super().__init__()
         c = cfg
-        if c.drop_prob > 0 or c.with_extent_feat or c.mask_attention != "none":
-            raise ValueError("DropBlock, extent features and mask attention "
-                             "of the PnP head belong to a later slice")
         self.cfg = cfg
+        self.dropblock = DropBlock(c.drop_prob)
         layers: list[nn.Module] = []
         cin, res = in_channels, in_res
         for _ in range(c.num_stride2_layers):
@@ -41,8 +69,16 @@ class ConvPnPNet(nn.Module):
                  "avg-max": 2 * c.featdim, "avg-max-min": 3 * c.featdim}
         if c.flat_op not in nflat:
             raise ValueError(f"unknown flat_op: {c.flat_op}")
-        self.flat_res = res
-        self.fc1 = nn.Linear(nflat[c.flat_op], 1024)
+        # the (h, w, c) order of the JAX package's flattened feature, which
+        # convert.py permutes into fc1's input (the extent rows follow it)
+        self.flat_hwc = ((res, res, c.featdim) if c.flat_op == "flatten"
+                         else (1, 1, nflat[c.flat_op]))
+        nfc = nflat[c.flat_op]
+        if c.with_extent_feat:
+            self.fc_extent1 = nn.Linear(3, 64)
+            self.fc_extent2 = nn.Linear(64, 128)
+            nfc += 128
+        self.fc1 = nn.Linear(nfc, 1024)
         self.fc2 = nn.Linear(1024, 256)
         self.fc_r = nn.Linear(256, rot_dim)
         self.fc_t = nn.Linear(256, 3)
@@ -50,18 +86,23 @@ class ConvPnPNet(nn.Module):
 
     def forward(self, coor_feat: Tensor, region: Tensor | None = None,
                 extents: Tensor | None = None,
-                extra_feat: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                mask_attention: Tensor | None = None,
+                extra_feat: Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> tuple[Tensor, Tensor]:
         """coor_feat (B,H,W,3[+2]) xyz (+2d coords); region (B,H,W,R)
-        softmaxed; extents (B,3); extra_feat (B,H,W,E) the vf/norm maps.
-        Returns (rot_rep (B,rot_dim), t (B,3))."""
+        softmaxed; extents (B,3); mask_attention (B,H,W,M) the mask
+        probability; extra_feat (B,H,W,E) the vf/norm maps; generator:
+        DropBlock's draws (training mode, drop_prob > 0). Returns (rot_rep
+        (B,rot_dim), t (B,3))."""
         c = self.cfg
-        if (c.denormalize_by_extent and extents is not None
-                and coor_feat.shape[-1] in (3, 5)):
-            xyz = (coor_feat[..., :3] - 0.5) * extents[:, None, None, :]
-            coor_feat = torch.cat([xyz, coor_feat[..., 3:]], dim=-1)
-        x = coor_feat if region is None else torch.cat([coor_feat, region], -1)
+        x = pnp_input(c, coor_feat, extents)
+        if region is not None:
+            x = torch.cat([x, region], -1)
+        x = attend(c, x, mask_attention)
         if extra_feat is not None:
             x = torch.cat([x, extra_feat.to(x.dtype)], -1)
+        x = self.dropblock(x, generator)
         x = x.permute(0, 3, 1, 2)
         for layer in self.features:
             x = layer(x)
@@ -74,6 +115,51 @@ class ConvPnPNet(nn.Module):
             feat = torch.cat([flat.mean(2), flat.amax(2)], -1)
         else:
             feat = torch.cat([flat.mean(2), flat.amax(2), flat.amin(2)], -1)
+        if c.with_extent_feat and extents is not None:
+            ext = self.act(self.fc_extent2(self.act(self.fc_extent1(extents))))
+            feat = torch.cat([feat, ext.to(feat.dtype)], -1)
         feat = self.act(self.fc1(feat))
         feat = self.act(self.fc2(feat))
         return self.fc_r(feat), self.fc_t(feat)
+
+
+class SimplePointPnPNet(nn.Module):
+    """The point-net style head (point_pnp_net.py SimplePointPnPNet): every
+    pixel's feature through 128-128-1024 dense layers (pts_fc1-3) with leaky
+    ReLU, a max over the H·W points, fc1 (512) and fc2 (256), then fc_pose
+    (rot_dim + 3). Its extra_feat joins before the mask attention (the
+    reverse of ConvPnPNet), as in the JAX package."""
+
+    def __init__(self, cfg: PnPNetConfig, in_channels: int, rot_dim: int = 6):
+        super().__init__()
+        self.cfg = cfg
+        self.rot_dim = rot_dim
+        self.pts_fc1 = nn.Linear(in_channels, 128)
+        self.pts_fc2 = nn.Linear(128, 128)
+        self.pts_fc3 = nn.Linear(128, 1024)
+        self.fc1 = nn.Linear(1024, 512)
+        self.fc2 = nn.Linear(512, 256)
+        self.fc_pose = nn.Linear(256, rot_dim + 3)
+        self.act = get_act("leakyrelu")
+
+    def forward(self, coor_feat: Tensor, region: Tensor | None = None,
+                extents: Tensor | None = None,
+                mask_attention: Tensor | None = None,
+                extra_feat: Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> tuple[Tensor, Tensor]:
+        """As ConvPnPNet.forward (the generator is not drawn from)."""
+        c = self.cfg
+        x = pnp_input(c, coor_feat, extents)
+        if region is not None:
+            x = torch.cat([x, region], -1)
+        if extra_feat is not None:
+            x = torch.cat([x, extra_feat.to(x.dtype)], -1)
+        x = attend(c, x, mask_attention)
+        pts = x.flatten(1, 2)                                # (B, HW, C)
+        for fc in (self.pts_fc1, self.pts_fc2, self.pts_fc3):
+            pts = self.act(fc(pts))
+        feat = pts.amax(1)                                   # global max pool
+        feat = self.act(self.fc2(self.act(self.fc1(feat))))
+        pose = self.fc_pose(feat)
+        return pose[:, :self.rot_dim], pose[:, self.rot_dim:]

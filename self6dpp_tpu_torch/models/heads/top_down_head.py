@@ -1,20 +1,25 @@
-"""Top-down geometry head: stride-32 feature -> dense maps at output_res
-(port of self6dpp_tpu/models/heads/top_down_head.py: TopDownGeoHead,
-geo_map_channels, emit_geo_maps, gather_class_aware).
+"""Geometry heads: backbone feature(s) -> dense maps at output_res (port
+of self6dpp_tpu/models/heads/top_down_head.py: TopDownGeoHead,
+ConvGeoHead, FPNGeoHead, geo_map_channels, emit_geo_maps,
+gather_class_aware).
 
 Module names follow the reference TopDownMaskXyzRegionHead (`features` as
 one ModuleList: deconv, norm, act, then ConvModules and parameter-free
-upsamples; the shared `out_layer`). forward takes NCHW and returns a dict
-of NHWC maps, the JAX package's layout.
+upsamples; the shared `out_layer`, or one `out_{k}` a map when the out
+layers are split). forward takes NCHW (the FPN head a list of NCHW levels,
+finest first) and returns a dict of NHWC maps, the JAX package's layout.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import Tensor, nn
 
 from ...config import GeoHeadConfig
-from ..layers import ConvNormAct, ConvTranspose2x, Norm, Upsample2x, get_act
+from ..layers import (ConvNormAct, ConvTranspose2x, Norm, Upsample2x, get_act,
+                      upsample2x_align_corners)
 
 
 def geo_map_channels(c: GeoHeadConfig, num_classes: int) -> dict[str, int]:
@@ -38,13 +43,43 @@ def geo_map_channels(c: GeoHeadConfig, num_classes: int) -> dict[str, int]:
     return chans
 
 
+def add_out_layers(head: nn.Module, c: GeoHeadConfig, cin: int,
+                   num_classes: int) -> None:
+    """The common tail of every geo head: one shared conv `out_layer`
+    emitting mask|xyz|region[|vf|norm], or (out_layer_shared False) one conv
+    `out_{k}` for each map."""
+    head.chans = geo_map_channels(c, num_classes)
+    k = c.out_kernel_size
+    if c.out_layer_shared:
+        head.out_layer = nn.Conv2d(cin, sum(head.chans.values()), k, 1, k // 2)
+    else:
+        for name, n in head.chans.items():
+            setattr(head, f"out_{name}", nn.Conv2d(cin, n, k, 1, k // 2))
+
+
+def emit_geo_maps(head: nn.Module, x: Tensor) -> dict[str, Tensor]:
+    """The map dict (NHWC) from the out layer(s) add_out_layers put on
+    `head`."""
+    if hasattr(head, "out_layer"):
+        out = head.out_layer(x).permute(0, 2, 3, 1)
+        maps, ofs = {}, 0
+        for k, n in head.chans.items():
+            maps[k] = out[..., ofs:ofs + n]
+            ofs += n
+        return maps
+    return {k: getattr(head, f"out_{k}")(x).permute(0, 2, 3, 1)
+            for k in head.chans}
+
+
 class TopDownGeoHead(nn.Module):
+    """Up-blocks (deconv + norm + act, or a parameter-free 2x upsample,
+    then num_conv_per_block ConvModules each) from the coarsest feature to
+    output_res."""
+
     def __init__(self, cfg: GeoHeadConfig, in_channels: int,
                  num_classes: int = 1):
         super().__init__()
         c = cfg
-        if not c.out_layer_shared:
-            raise ValueError("split out layers belong to a later slice")
         self.cfg = cfg
         self.num_classes = num_classes
         layers: list[nn.Module] = []
@@ -63,20 +98,77 @@ class TopDownGeoHead(nn.Module):
                 cin_blk = c.feat_dim
             cin = c.feat_dim
         self.features = nn.ModuleList(layers)
-        self.chans = geo_map_channels(c, num_classes)
-        k = c.out_kernel_size
-        self.out_layer = nn.Conv2d(c.feat_dim, sum(self.chans.values()), k, 1,
-                                   k // 2)
+        add_out_layers(self, c, c.feat_dim, num_classes)
 
     def forward(self, x: Tensor) -> dict[str, Tensor]:
         for layer in self.features:
             x = layer(x)
-        out = self.out_layer(x).permute(0, 2, 3, 1)          # NHWC
-        maps, ofs = {}, 0
-        for k, n in self.chans.items():
-            maps[k] = out[..., ofs:ofs + n]
-            ofs += n
-        return maps
+        return emit_geo_maps(self, x)
+
+
+class ConvGeoHead(nn.Module):
+    """The plain conv head (ConvMaskXyzRegionHead): num_feat_layers
+    ConvModules at the feature's own resolution, then the out layer(s)."""
+
+    def __init__(self, cfg: GeoHeadConfig, in_channels: int,
+                 num_classes: int = 1):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        layers, cin = [], in_channels
+        for _ in range(c.num_feat_layers):
+            layers.append(ConvNormAct(cin, c.feat_dim, c.feat_kernel_size,
+                                      c.norm, c.num_gn_groups, c.act))
+            cin = c.feat_dim
+        self.features = nn.ModuleList(layers)
+        add_out_layers(self, c, cin, num_classes)
+
+    def forward(self, x: Tensor) -> dict[str, Tensor]:
+        for layer in self.features:
+            x = layer(x)
+        return emit_geo_maps(self, x)
+
+
+class FPNGeoHead(nn.Module):
+    """The Semantic-FPN head (FPNMaskXyzRegionHead): level i (stride s_i)
+    goes through max(1, log2(s_i / s_0)) 3x3 ConvModules, each followed by
+    a bilinear (align-corners) 2x upsample when s_i is not the finest
+    stride s_0; the levels are summed at s_0, then the out layer(s).
+    `scale_heads.<level>.<j>` is level's j-th ConvModule."""
+
+    def __init__(self, cfg: GeoHeadConfig, in_channels: list[int],
+                 feature_strides: tuple[int, ...], num_classes: int = 1):
+        super().__init__()
+        c = cfg
+        if len(in_channels) != len(feature_strides):
+            raise ValueError(f"{len(in_channels)} levels for strides "
+                             f"{feature_strides}")
+        self.cfg = cfg
+        self.feature_strides = tuple(feature_strides)
+        base = self.feature_strides[0]
+        heads = []
+        for cin, stride in zip(in_channels, self.feature_strides):
+            n = max(1, int(math.log2(stride) - math.log2(base)))
+            heads.append(nn.ModuleList(
+                ConvNormAct(cin if j == 0 else c.feat_dim, c.feat_dim, 3,
+                            c.norm, c.num_gn_groups, c.act) for j in range(n)))
+        self.scale_heads = nn.ModuleList(heads)
+        add_out_layers(self, c, c.feat_dim, num_classes)
+
+    def forward(self, feats: list[Tensor]) -> dict[str, Tensor]:
+        if len(feats) != len(self.feature_strides):
+            raise ValueError(f"{len(feats)} levels for strides "
+                             f"{self.feature_strides}")
+        base = self.feature_strides[0]
+        out = None
+        for x, stride, head in zip(feats, self.feature_strides,
+                                   self.scale_heads):
+            for layer in head:
+                x = layer(x)
+                if stride != base:
+                    x = upsample2x_align_corners(x)
+            out = x if out is None else out + x
+        return emit_geo_maps(self, out)
 
 
 def gather_class_aware(maps: dict[str, Tensor], cfg: GeoHeadConfig,

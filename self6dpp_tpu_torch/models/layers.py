@@ -145,9 +145,62 @@ def upsample2x_align_corners(x: Tensor) -> Tensor:
 
 
 def ConvTranspose2x(cin: int, cout: int, kernel_size: int = 3) -> nn.Module:
-    """Exactly-2x transposed conv of the 'deconv' up-blocks: torch
-    ConvTranspose2d(k=3, stride 2, padding 1, output_padding 1)."""
-    if kernel_size != 3:
-        raise ValueError(f"deconv kernel {kernel_size}: only 3 is ported")
-    return nn.ConvTranspose2d(cin, cout, 3, 2, padding=1, output_padding=1,
-                              bias=False)
+    """Exactly-2x transposed conv of the 'deconv' up-blocks at any kernel
+    size k, as the JAX package's ConvTranspose2x: its stride-2 transpose
+    padded (k-1, k-1) and cropped at (k-1)//2 (at k = 4 Flax's 'SAME',
+    the same numbers) is torch's ConvTranspose2d with padding (k-1)//2 and
+    output padding k % 2 (k = 3: padding 1, output padding 1). The JAX
+    kernels are not flipped; convert.py flips them."""
+    return nn.ConvTranspose2d(cin, cout, kernel_size, 2,
+                              padding=(kernel_size - 1) // 2,
+                              output_padding=kernel_size % 2, bias=False)
+
+
+def dropblock_gamma(drop_prob: float, block_size: int, h: int, w: int
+                    ) -> float:
+    """DropBlock's seed rate: p / b² · HW / ((H-b+1)(W-b+1))."""
+    valid = max((h - block_size + 1) * (w - block_size + 1), 1)
+    return drop_prob / block_size ** 2 * (h * w) / valid
+
+
+def dropblock_seed(generator: torch.Generator | None, shape: tuple,
+                   gamma: float, dtype: torch.dtype,
+                   device: torch.device) -> Tensor:
+    """The Bernoulli(gamma) seed mask of `shape` (N, H, W, 1), drawn from
+    `generator` (torch's default one when None) on `device`, as uniform <
+    gamma (jax.random.bernoulli's rule)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < gamma).to(dtype)
+
+
+def dropblock_apply(x: Tensor, seed: Tensor, block_size: int = 5) -> Tensor:
+    """DropBlock's arithmetic on NHWC x: the seed (N, H, W, 1) dilated by a
+    block_size² stride-1 max pool (padded with -inf), kept = 1 - block,
+    x · keep / max(mean(keep), 1e-6)."""
+    pad = block_size // 2
+    block = Fnn.max_pool2d(seed.permute(0, 3, 1, 2), block_size, 1, pad)
+    keep = 1.0 - block.permute(0, 2, 3, 1)
+    denom = keep.mean((1, 2, 3), keepdim=True).clamp_min(1e-6)
+    return x * keep / denom
+
+
+class DropBlock(nn.Module):
+    """DropBlock2D on NHWC inputs (port of the JAX package's DropBlock): in
+    training mode with drop_prob > 0 it drops block_size² blocks around a
+    Bernoulli seed mask drawn from the generator it is given; otherwise the
+    identity, drawing nothing."""
+
+    def __init__(self, drop_prob: float = 0.0, block_size: int = 5):
+        super().__init__()
+        self.drop_prob = drop_prob
+        self.block_size = block_size
+
+    def forward(self, x: Tensor,
+                generator: torch.Generator | None = None) -> Tensor:
+        if not self.training or self.drop_prob <= 0.0:
+            return x
+        n, h, w, _ = x.shape
+        gamma = dropblock_gamma(self.drop_prob, self.block_size, h, w)
+        seed = dropblock_seed(generator, (n, h, w, 1), gamma, x.dtype,
+                              x.device)
+        return dropblock_apply(x, seed, self.block_size)

@@ -1,6 +1,6 @@
 """Differentiable pose decoding from network outputs (port of
-self6dpp_tpu/ops/pose_decode.py): the GDRN centroid-z decoder and the
-DeepIM delta-pose update."""
+self6dpp_tpu/ops/pose_decode.py): the GDRN decoders (centroid_z,
+centroid_z_abs, trans) and the DeepIM delta-pose update."""
 
 from __future__ import annotations
 
@@ -51,6 +51,35 @@ def pose_from_centroid_z(
                         dim=-1)
     rot = allo_to_ego_mat(trans, pred_rot_m, eps=eps) if is_allo else pred_rot_m
     return rot, trans
+
+
+def pose_from_centroid_z_abs(
+    pred_rot_m: Tensor,        # (B, 3, 3)
+    pred_centroid: Tensor,     # (B, 2) absolute pixel centroid
+    pred_z: Tensor,            # (B, 1) absolute z
+    roi_cam: Tensor,           # (B, 3, 3)
+    eps: float = 1e-4,
+    is_allo: bool = True,
+) -> tuple[Tensor, Tensor]:
+    """The absolute-centroid decoder (pose_from_pred_centroid_z_abs.py):
+    t = ((cx - px) z / fx, (cy - py) z / fy, z) from the predicted pixel
+    centroid and depth."""
+    z = pred_z[:, 0]
+    fx, fy = roi_cam[:, 0, 0], roi_cam[:, 1, 1]
+    px, py = roi_cam[:, 0, 2], roi_cam[:, 1, 2]
+    trans = torch.stack([z * (pred_centroid[:, 0] - px) / fx,
+                         z * (pred_centroid[:, 1] - py) / fy, z], dim=-1)
+    rot = allo_to_ego_mat(trans, pred_rot_m, eps=eps) if is_allo else pred_rot_m
+    return rot, trans
+
+
+def pose_from_trans(pred_rot_m: Tensor, pred_trans: Tensor, eps: float = 1e-4,
+                    is_allo: bool = True) -> tuple[Tensor, Tensor]:
+    """The direct-translation decoder (pose_from_pred.py): the head's
+    output is the translation."""
+    rot = allo_to_ego_mat(pred_trans, pred_rot_m, eps=eps) if is_allo \
+        else pred_rot_m
+    return rot, pred_trans
 
 
 def pose_from_delta_init(
