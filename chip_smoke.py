@@ -187,6 +187,20 @@ exits non-zero):
      PnP (evaluator.pnp_from_xyz_mask, RANSAC and iterative) on the eval
      loader's ground-truth labels, held against the ground-truth pose,
      and on the trained model's predicted maps, host ms per ROI.
+ 30. the native FPS (csrc/fps.c) against fps_numpy bit for bit on the
+     icosphere of 163,842 vertices, the synthetic set's meshes and a
+     random cloud at k 64 and 512, both timed, with the thread count;
+ 31. the golden fixtures through the port's checkpoint converter,
+     loaded by load_params_npz, run on the card in float32 against the
+     reference outputs (TOL_CONVERT);
+ 32. the flagship stage-II step in lab_impl surrogate, split_grad and
+     pixel_split against pallas from one state in float32 (phase 6's
+     tolerances), then bf16 steps in each mode timed;
+ 33. one flagship bf16 stage-II step under utils.profiling.trace: the
+     trace names B1, B2 and B3; its size, the step inside and outside;
+ 34. the sharded (fsdp) code path at the grid (1, 1): three stage-I steps
+     at gdrn_flagship through shard_state(force=True) bit for bit with
+     the unsharded steps (the multi-rank path is the CPU test's).
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -4026,6 +4040,367 @@ def run_variant_cli(root, device):
                            "fit_slack": PNP_FIT_SLACK}}
 
 
+# ---------------------------------------------------------------------------
+# phases 30-34: the native FPS, the checkpoint converter, the LAB modes, a
+# traced step, the sharded path on one card (PR 13)
+# ---------------------------------------------------------------------------
+
+FPS_KS = (64, 512)                # the loader's n_regions and n_points
+FPS_SUBDIV = 7                    # icosphere of 163,842 vertices
+FPS_CLOUD = 50000                 # random cloud (no ties)
+TOL_CONVERT = 1e-5                # converted fixtures on the card, fp32, TF32
+                                  # off, vs the reference PyTorch outputs:
+                                  # of each output's largest magnitude (at
+                                  # least 1; FlowNetS' reach 230)
+MICRO_FLOWNET = (8, 12, 16, 16, 16, 24)   # the golden fixture's widths
+LAB_MODES = ("surrogate", "split_grad", "pixel_split")
+LAB_TIMED_STEPS = 5               # bf16 steps timed in each LAB mode
+TRACE_DIR = os.path.join(SYN_DIR, "trace")
+FSDP_BATCH = 4                    # stage-I images of the sharded-path check
+FSDP_STEPS = 3                    # the first untimed
+
+
+def run_fps(root):
+    """Phase 30: the native FPS (csrc/fps.c, one thread) against fps_numpy, bit
+    for bit, on the icosphere at subdivision FPS_SUBDIV, the synthetic
+    set's meshes (phase 16) and a random cloud, at k in FPS_KS, from the
+    centroid; both timed on the host (ms, one call each after a warm
+    call)."""
+    import glob
+    from self6dpp_tpu_torch.data.meshes import load_ply, make_icosphere
+    from self6dpp_tpu_torch.ops import fps
+    clouds = {f"icosphere{FPS_SUBDIV}": make_icosphere(
+        subdivisions=FPS_SUBDIV)[0]}
+    for path in sorted(glob.glob(os.path.join(root, "lm", "models",
+                                              "*.ply"))):
+        clouds[os.path.basename(path)] = load_ply(path)["verts"]
+    clouds[f"cloud{FPS_CLOUD}"] = np.random.default_rng(SEED).standard_normal(
+        (FPS_CLOUD, 3)).astype(np.float32)
+    require(len(clouds) >= 4, "FPS: the synthetic set's meshes", sorted(clouds))
+    fps.farthest_point_sampling(clouds[f"cloud{FPS_CLOUD}"], 8)
+    out = {"cases": {}}
+    for name, pts in clouds.items():
+        pts = np.ascontiguousarray(pts, np.float32)
+        for k in FPS_KS:
+            t0 = time.perf_counter()
+            got = fps.farthest_point_sampling(pts, k)
+            t1 = time.perf_counter()
+            want = fps.fps_numpy(pts, k)
+            t2 = time.perf_counter()
+            require(np.array_equal(got, want), "FPS native vs numpy", name, k)
+            out["cases"][f"{name}/k{k}"] = {
+                "points": len(pts), "native_ms": (t1 - t0) * 1e3,
+                "numpy_ms": (t2 - t1) * 1e3}
+    return out
+
+
+def run_converter(device):
+    """Phase 31: the three golden fixtures (reference state dicts in the
+    reference's layout) through the port's converter into .npz, loaded by
+    load_params_npz into the port's modules on the card, run in float32
+    with TF32 off: every reference output within TOL_CONVERT of its
+    largest magnitude."""
+    from self6dpp_tpu_torch import config as tc
+    from self6dpp_tpu_torch.engine.checkpoint import load_params_npz
+    from self6dpp_tpu_torch.models.backbones.flownet import FlowNetS
+    from self6dpp_tpu_torch.models.backbones.resnet import ResNetBackbone
+    from self6dpp_tpu_torch.models.heads.conv_pnp_net import ConvPnPNet
+    from self6dpp_tpu_torch.models.heads.top_down_head import TopDownGeoHead
+    from self6dpp_tpu_torch.tools import convert_torch_weights as tool
+    fix = os.path.join(HERE, "tests", "fixtures")
+    out_dir = os.path.join(SYN_DIR, "convert")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def raw(name, scope=""):
+        f = np.load(os.path.join(fix, f"golden_{name}.npz"))
+        return f, {scope + k[4:]: torch.from_numpy(f[k]) for k in f.files
+                   if k.startswith("raw.")}
+
+    def convert(name, sd, *argv):
+        src, dst = (os.path.join(out_dir, f"{name}{e}") for e in (".pth",
+                                                                  ".npz"))
+        torch.save(sd, src)
+        require(tool.main(["--src", src, "--out", dst, *argv]) == 0,
+                "converter", name)
+        return dst
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2).to(device)
+
+    def err(got, want, nhwc=True):
+        """max |got - want| over max(max |want|, 1)"""
+        g = got.permute(0, 2, 3, 1) if nhwc else got
+        d = np.abs(g.float().cpu().numpy() - want).max()
+        return float(d / max(np.abs(want).max(), 1.0))
+
+    errs = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f, sd = raw("micro_resnet")
+        net = load_params_npz(convert("micro_resnet", sd, "--kind", "resnet",
+                                      "--arch", "micro"),
+                              ResNetBackbone("micro")).to(device).eval()
+        with torch.no_grad():
+            errs["expected"] = err(net(nchw(f["input"])), f["expected"])
+        f, sd = raw("micro_flownet")
+        net = load_params_npz(
+            convert("micro_flownet", sd, "--kind", "flownet"),
+            FlowNetS(widths=MICRO_FLOWNET, out_flow_level="flow4"))
+        with torch.no_grad():
+            outs = net.to(device).eval()(nchw(f["input"]))
+        for key, got in zip(("expected_out6", "expected_concat4",
+                             "expected_flow4"), outs):
+            errs[key] = err(got, f[key])
+        f, sd = raw("geo_pnp")
+        _, bb = raw("micro_resnet", "backbone.")
+        path = convert("gdrn", {**bb, **sd}, "--kind", "gdrn", "--arch",
+                       "micro")
+        geo = TopDownGeoHead(tc.GeoHeadConfig(feat_dim=16, num_gn_groups=4,
+                                              num_regions=4, xyz_bin=1),
+                             in_channels=24)
+        pnp = ConvPnPNet(tc.PnPNetConfig(featdim=16, num_gn_groups=4,
+                                         denormalize_by_extent=False),
+                         in_channels=8, in_res=16)
+        load_params_npz(path, geo, prefix="geo_head")
+        load_params_npz(path, pnp, prefix="pnp_net")
+        xp = torch.from_numpy(f["input_pnp"]).to(device)
+        with torch.no_grad():
+            maps = geo.to(device).eval()(nchw(f["input_geo"]))
+            rot, t = pnp.to(device).eval()(xp[..., :3], xp[..., 3:])
+        got = torch.cat([maps[k] for k in ("mask", "xyz", "region")], -1)
+        errs["expected_geo"] = err(got, f["expected_geo"], nhwc=False)
+        errs["expected_rot"] = err(rot, f["expected_rot"], nhwc=False)
+        errs["expected_t"] = err(t, f["expected_t"], nhwc=False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    require(len(errs) == 7 and max(errs.values()) <= TOL_CONVERT,
+            "converted fixtures on the card", errs)
+    return {"max_err_of_scale": errs, "tol": TOL_CONVERT}
+
+
+def lab_mode_step(cfg, mode, built):
+    """build_self_train_step for lab_impl `mode` on `built`'s model."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    mcfg = dataclasses.replace(cfg, self_sup=dataclasses.replace(
+        cfg.self_sup, lab_impl=mode))
+    return se.build_self_train_step(mcfg, built[0], built[3])
+
+
+def run_lab_modes(device):
+    """Phase 32: the flagship stage-II step (build_stage2, 8 ROIs) in
+    float32 (TF32 off, cuDNN deterministic) in lab_impl 'pallas' and in
+    each of LAB_MODES from one state (after one 'pallas' step from the
+    seeded weights): losses within TOL_S2_LOSS and parameters within
+    TOL_S2_PARAMS of the 'pallas' step's, the LAB term among them, the
+    step moving the parameters past S2_MOVED x TOL_S2_PARAMS; then
+    LAB_TIMED_STEPS bf16 steps in each mode and in 'pallas' after a
+    warm-up, timed (timed_steps), with their launches."""
+    from self6dpp_tpu_torch.engine import self_engine as se
+    cfg32 = stage2_cfg("float32", lr=S2_LR)
+    require(cfg32.self_sup.lab_lw > 0 and cfg32.self_sup.lab_impl == "pallas",
+            "the flagship's LAB term", cfg32.self_sup)
+    built = se.build_stage2(cfg32, S2_BATCH, device, seed=SEED)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        # the held step is the second: the first moves the parameters
+        # little (the teacher is the student), as in phase 6
+        lab_mode_step(cfg32, "pallas", built)(built[1], built[2])
+        torch.cuda.synchronize()
+        snap = snapshot(built[1])
+        for mode in ("pallas",) + LAB_MODES:
+            # a copy: the solver's load_state_dict keeps the tensors it is
+            # given, and the step updates its moments in place
+            restore(built[1], copy.deepcopy(snap))
+            _, m = lab_mode_step(cfg32, mode, built)(built[1], built[2])
+            torch.cuda.synchronize()
+            runs[mode] = ({k: float(v) for k, v in m.items()},
+                          params_of(built[0]))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ref_m, ref_p = runs["pallas"]
+    init = snap["model"]
+    out = {"fp32": {}, "bf16": {}}
+    for mode in LAB_MODES:
+        m, p = runs[mode]
+        d = {"loss_rel_err": loss_err(m, ref_m),
+             "params_max_abs": max_abs_diff(p, ref_p),
+             "loss_color_ab_obj": m["loss_color_ab_obj"]}
+        require(set(m) == set(ref_m) and d["loss_rel_err"] <= TOL_S2_LOSS
+                and d["params_max_abs"] <= TOL_S2_PARAMS,
+                "LAB mode vs pallas, fp32", mode, d)
+        out["fp32"][mode] = d
+    moved = max((ref_p[k] - init[k]).abs().max().item() for k in ref_p)
+    require(moved > S2_MOVED * TOL_S2_PARAMS, "the LAB-mode steps moved",
+            moved)
+    out["fp32_params_moved_max_abs"] = moved
+    del built, snap, runs
+    cfg = stage2_cfg("bfloat16")
+    built = se.build_stage2(cfg, S2_BATCH, device, seed=SEED)
+    snap = snapshot(built[1])
+    for mode in ("pallas",) + LAB_MODES:
+        restore(built[1], copy.deepcopy(snap))
+        step = lab_mode_step(cfg, mode, built)
+        step(built[1], built[2])
+        torch.cuda.synchronize()
+        zero_kernel_launches()
+        times, phases, metrics = timed_steps(step, built[1], built[2],
+                                             LAB_TIMED_STEPS)
+        launches = kernel_launches()
+        for m in metrics:
+            require(all(torch.isfinite(v).item() for v in m.values()),
+                    "non-finite LAB-mode loss", mode, m)
+        out["bf16"][mode] = {"ms_per_step": float(np.median(times)),
+                             "ms_range": [min(times), max(times)],
+                             "launches_per_step": {
+                                 k: v / LAB_TIMED_STEPS
+                                 for k, v in launches.items()}}
+    del built, snap
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_symbols():
+    """{B1, B2, B3: their CUDA kernels' names} from the built libraries'
+    ptxas logs."""
+    from self6dpp_tpu_torch.kernels import build
+    return {b: sorted(build.resources(src)) for b, src in (
+        ("B1", "fine_raster_fwd"), ("B2", "fine_raster_bwd"),
+        ("B3", "lab_value_grad"))}
+
+
+def run_trace(device):
+    """Phase 33: one flagship bf16 stage-II step under utils.profiling.
+    trace into TRACE_DIR (git-ignored): the trace file names the kernels of
+    B1, B2 and B3 among its device events; its size, and the step's ms
+    inside and outside the trace (host clock, after a synchronize)."""
+    import glob
+    import shutil
+    from self6dpp_tpu_torch.engine import self_engine as se
+    from self6dpp_tpu_torch.utils import profiling
+    cfg = stage2_cfg("bfloat16")
+    model, state, batch, lpips = se.build_stage2(cfg, S2_BATCH, device,
+                                                 seed=SEED)
+    step = se.make_self_train_step(cfg, model, lpips)
+    outside = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        outside.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    with profiling.trace(TRACE_DIR) as prof:
+        with profiling.annotate("stage2_step"):
+            step(state, batch)
+        torch.cuda.synchronize()
+    inside = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launches()
+    files = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    require(len(files) == 1, "one trace file", files)
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events
+             if e.get("cat") in ("kernel", "Kernel")}
+    found = {b: [k for k in ks if any(k in n for n in names)]
+             for b, ks in kernel_symbols().items()}
+    require(all(found.values()), "the trace names B1, B2 and B3", found,
+            sorted(names)[:20])
+    require(launches == S2_LAUNCHES, "one B1, B2, B3 launch in the traced step",
+            launches)
+    device_ms = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") in ("kernel", "Kernel")) / 1e3
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"trace_bytes": os.path.getsize(files[0]),
+            "kernel_events": sum(1 for e in events
+                                 if e.get("cat") in ("kernel", "Kernel")),
+            "kernels_named": found, "device_kernel_ms": device_ms,
+            "step_ms_traced": inside,
+            "step_ms_untraced": float(np.median(outside[1:])),
+            "profiler_rows": len(prof.key_averages())}
+
+
+def run_fsdp_one_card(device):
+    """Phase 34: the sharded code path at the grid (1, 1) on one card:
+    FSDP_STEPS float32 stage-I steps (the last ones timed) at gdrn_flagship (FSDP_BATCH images,
+    BN in train mode, Ranger, the EMA; TF32 off, cuDNN deterministic),
+    unsharded and through parallel/mesh.py::shard_state(force=True) (every
+    leaf of 2^16 elements or more held as a one-rank shard, gathered by
+    the forward hook, its gradient reduced to the shard, the solver on
+    the shards): parameters, EMA and solver state bit for bit. One card
+    cannot host two NCCL ranks; the multi-rank path is held on the CPU
+    (tests/test_torch_fsdp.py, gloo)."""
+    from self6dpp_tpu_torch.config import gdrn_flagship
+    from self6dpp_tpu_torch.data.synthetic import make_gdrn_batch
+    from self6dpp_tpu_torch.engine import gdrn_engine as ge
+    from self6dpp_tpu_torch.engine.deepim_engine import to_device
+    from self6dpp_tpu_torch.parallel import mesh
+    cfg = gdrn_flagship()
+    cfg = dataclasses.replace(
+        cfg, dist=dataclasses.replace(cfg.dist, compute_dtype="float32"),
+        solver=dataclasses.replace(cfg.solver, ims_per_batch=FSDP_BATCH,
+                                   reference_bs=FSDP_BATCH))
+    batch = to_device(make_gdrn_batch(cfg, FSDP_BATCH, seed=SEED), device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, info = [], {}
+    try:
+        for sharded in (False, True):
+            model = ge.build_gdrn(cfg, device, seed=SEED)
+            state = ge.init_state(cfg, model)
+            if sharded:
+                grid = mesh.make_mesh(cfg.dist)
+                mesh.shard_state(state, grid, force=True)
+                fs = state.fsdp
+                info.update(grid=list(grid.shape),
+                            sharded_leaves=len(fs.student.entries),
+                            leaves=len(list(model.parameters())),
+                            released=all(p.numel() == 0 for p, _, _ in
+                                         fs.student.entries.values()))
+            step = ge.make_train_step(cfg, model)
+            step(state, batch)             # untimed: cuDNN's first calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FSDP_STEPS - 1):
+                step(state, batch)
+            torch.cuda.synchronize()
+            info[f"ms_per_step_{'sharded' if sharded else 'plain'}"] = (
+                time.perf_counter() - t0) * 1e3 / (FSDP_STEPS - 1)
+            with mesh.gathered(state):
+                snap = {"model": params_of(model),
+                        "teacher": params_of(state.teacher)}
+            snap["opt"] = state.opt.state_dict()["state"]
+            runs.append(snap)
+            del model, state, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+    require(info["sharded_leaves"] > 0 and info["released"],
+            "the sharded branch was taken", info)
+    a, b = runs
+    diff = {"model": max_abs_diff(a["model"], b["model"]),
+            "teacher": max_abs_diff(a["teacher"], b["teacher"]),
+            "opt": max((a["opt"][i][k] - b["opt"][i][k]).abs().max().item()
+                       for i in a["opt"] for k in a["opt"][i]
+                       if torch.is_tensor(a["opt"][i][k])
+                       and a["opt"][i][k].ndim)}
+    require(all(v == 0 for v in diff.values()),
+            "sharded path at (1, 1) vs unsharded, bit for bit", diff)
+    torch.cuda.empty_cache()
+    return {**info, "max_abs_diff": diff, "steps": FSDP_STEPS,
+            "batch": FSDP_BATCH}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4291,6 +4666,26 @@ def main(record_path: str = "") -> int:
     v2_cli = run_variant_cli(syn_root, device)
     print(f"train_gdrn V2 and PnP: {json.dumps(v2_cli)}", flush=True)
     clock["variant_cli_pnp_phase29_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fps30 = run_fps(syn_root)
+    print(f"native FPS vs numpy: {json.dumps(fps30)}", flush=True)
+    clock["fps_phase30_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv31 = run_converter(device)
+    print(f"converted fixtures: {json.dumps(conv31)}", flush=True)
+    clock["converter_phase31_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab32 = run_lab_modes(device)
+    print(f"LAB modes: {json.dumps(lab32)}", flush=True)
+    clock["lab_modes_phase32_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace33 = run_trace(device)
+    print(f"traced step: {json.dumps(trace33)}", flush=True)
+    clock["trace_phase33_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fsdp34 = run_fsdp_one_card(device)
+    print(f"fsdp at (1, 1): {json.dumps(fsdp34)}", flush=True)
+    clock["fsdp_phase34_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -4316,7 +4711,9 @@ def main(record_path: str = "") -> int:
               "gen_pseudo_poses": pseudo, "gen_pseudo_poses_b1": b1_pseudo,
               "dist_flags": dist_flags, "variants_stage1": variants,
               "variant_stage2_kernels": k28, "variant_stage2": v2_stage2,
-              "variant_cli_pnp": v2_cli, "clock": clock,
+              "variant_cli_pnp": v2_cli, "fps": fps30,
+              "converter": conv31, "lab_modes": lab32, "trace": trace33,
+              "fsdp_one_card": fsdp34, "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -4459,6 +4856,18 @@ def main(record_path: str = "") -> int:
                                        "eval_images_per_s", "pnp_gt_worst",
                                        "pnp_gt_ms_per_roi",
                                        "pnp_pred_ms_per_roi")},
+                               "fps_ms": {
+                                   k: [v["native_ms"], v["numpy_ms"]]
+                                   for k, v in fps30["cases"].items()},
+                               "lab_mode_ms_per_step": {
+                                   k: v["ms_per_step"]
+                                   for k, v in lab32["bf16"].items()},
+                               "trace": {k: trace33[k] for k in (
+                                   "trace_bytes", "step_ms_traced",
+                                   "step_ms_untraced")},
+                               "fsdp_one_card_ms_per_step": [
+                                   fsdp34["ms_per_step_plain"],
+                                   fsdp34["ms_per_step_sharded"]],
                                "gpu": torch.cuda.get_device_name(0),
                                "card": card}}))
     print(card)

@@ -442,6 +442,42 @@ def _key_map(model) -> dict[str, tuple[str, str]]:
     return gdrn_key_map(model)
 
 
+def part_key_map(model) -> tuple[dict[str, tuple[str, str]], tuple | None
+                                 ] | None:
+    """(key map, flat_hwc) of a model part that the JAX package also builds
+    as a module of its own: a ResNet backbone, FlowNetS, the TopDown geo
+    head or ConvPnPNet; None for any other module."""
+    from .models.backbones.flownet import FlowNetS
+    from .models.backbones.resnet import ResNetBackbone
+    from .models.heads.conv_pnp_net import ConvPnPNet
+    from .models.heads.top_down_head import TopDownGeoHead
+    if isinstance(model, ResNetBackbone):
+        return resnet_key_map(model.arch), None
+    if isinstance(model, FlowNetS):
+        return flownet_key_map(model.has_decoder, model.out_flow_level,
+                               model.use_bn), None
+    if isinstance(model, TopDownGeoHead):
+        return geo_head_key_map(model.cfg), None
+    if isinstance(model, ConvPnPNet):
+        return pnp_key_map(model.cfg), model.flat_hwc
+    return None
+
+
+def part_state_dict_to_flax(model, state_dict: Mapping | None = None
+                            ) -> dict:
+    """The variables of a part_key_map module in the JAX layout."""
+    key_map, hwc = part_key_map(model)
+    sd = model.state_dict() if state_dict is None else state_dict
+    return _state_dict_to_flax(sd, key_map, hwc)
+
+
+def part_flax_to_state_dict(variables: Mapping, model
+                            ) -> dict[str, torch.Tensor]:
+    """The state_dict of a part_key_map module from its JAX variables."""
+    key_map, hwc = part_key_map(model)
+    return _convert(model, _variables(variables), key_map, hwc)
+
+
 def param_kinds(model) -> dict[str, str]:
     """{parameter name: the kind of its JAX counterpart's layout ('conv',
     'deconv', 'fc', 'fc_flat', 'dense', 'bn', 'gn', 'mtl')} of a DeepIM, a

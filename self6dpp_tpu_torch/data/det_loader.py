@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..parallel.dist import rank, world_size
+from ..parallel.dist import data_rank, data_size
 from .aug import (hsv_to_rgb_u8, resize_u8, rgb_to_hsv_u8,
                   rotation_matrix_2d, warp_affine_u8)
 from .bop import Record
@@ -298,11 +298,12 @@ class DetDataset:
 
     def train_batches(self, batch_size: int):
         """Infinite shuffled fixed-shape batches; under data parallel
-        (parallel/dist.py) rank r of W takes order[r::W] of each epoch's
-        order, which every rank draws alike."""
+        (parallel/dist.py) data rank r of W takes order[r::W] of each
+        epoch's order, which every rank draws alike (the ranks of one fsdp
+        group take the same records)."""
         while True:
             order = self.rng.permutation(len(self.records))
-            order = order[rank():: world_size()]
+            order = order[data_rank():: data_size()]
             for i in range(0, len(order) - batch_size + 1, batch_size):
                 t0 = time.perf_counter()
                 samples = [self.train_sample(int(j))

@@ -38,7 +38,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..ops.fps import farthest_point_sampling, xyz_to_region_batch
-from ..parallel.dist import rank, world_size
+from ..parallel.dist import data_rank, data_size
 from .aug import add_noise_depth, aug_bbox_dzi, color_aug, \
     crop_resize_by_warp_affine, get_2d_coord, replace_bg, warp_affine
 from .bop import Record
@@ -593,10 +593,14 @@ class GDRNDataset:
         def gen():
             try:
                 if infinite:
-                    # rank r of W takes the stream's [r::W] (every rank
-                    # draws the same stream: data parallel, parallel/dist.py)
-                    stream = process_shard(self._index_sampler(n), rank(),
-                                           world_size())
+                    # data rank r of W takes the stream's [r::W] (every
+                    # rank draws the same stream: data parallel, parallel/
+                    # dist.py). The data index, not the rank: under a rank
+                    # grid the ranks of one fsdp group take the same
+                    # records, as the JAX batch sharding P(data) gives them
+                    # (parallel/mesh.py)
+                    stream = process_shard(self._index_sampler(n),
+                                           data_rank(), data_size())
                     while True:
                         yield timed([self.index[next(stream)]
                                      for _ in range(batch_size)])

@@ -75,3 +75,21 @@ def infinite_subset_random_sampler(n: int, subset_ratio: float = 1.0,
     while True:
         idx = rng.choice(n, size=k, replace=False, p=p)
         yield from idx
+
+
+def batch_separated_batches(group_ids: np.ndarray, batch_size: int,
+                            seed: int = 0) -> Iterator[np.ndarray]:
+    """Infinite stream of index batches that never mix group ids (the
+    BatchSeparatedBatchSampler): each round shuffles every group and the
+    groups' order, then yields each group's whole batches."""
+    rng = np.random.default_rng(seed)
+    groups: dict = {}
+    for i, gid in enumerate(group_ids):
+        groups.setdefault(gid, []).append(i)
+    while True:
+        pools = {g: rng.permutation(v).tolist() for g, v in groups.items()}
+        order = rng.permutation(list(pools))
+        for g in order:
+            pool = pools[g]
+            for s in range(0, len(pool) - batch_size + 1, batch_size):
+                yield np.asarray(pool[s:s + batch_size])

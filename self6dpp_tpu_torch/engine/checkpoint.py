@@ -17,6 +17,8 @@ CheckpointManager writes its own step directories <dir>/<step>/ instead:
               step and the host generator's state.
 A step is written to <step>.tmp and renamed when complete. A step
 directory without the marker is an orbax step: the manager raises on it.
+Every file holds whole tensors, whatever the rank grid that wrote it, and
+loads into a run of any grid.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..models.deepim import DeepIM
 from ..models.gdrn import GDRN
 from ..models.yolo import YOLOv4
 from ..parallel.dist import is_main
+from ..parallel.mesh import gathered
 from .train_state import TrainState
 
 MARKER = "PORT_STEP"
@@ -52,13 +55,16 @@ def _to_flax(model: nn.Module) -> dict:
         return convert.gdrn_state_dict_to_flax(model)
     if isinstance(model, YOLOv4):
         return convert.yolo_state_dict_to_flax(model)
+    if convert.part_key_map(model) is not None:
+        return convert.part_state_dict_to_flax(model)
     return {"params": {k: v.detach().cpu().numpy()
                        for k, v in model.state_dict().items()}}
 
 
 def _from_flat(flat: dict[str, np.ndarray], model: nn.Module) -> dict:
     """The model's state_dict from flat JAX-layout variables."""
-    if not isinstance(model, (DeepIM, GDRN, YOLOv4)):
+    part = convert.part_key_map(model) is not None
+    if not isinstance(model, (DeepIM, GDRN, YOLOv4)) and not part:
         return {k.partition(".")[2]: torch.as_tensor(v)
                 for k, v in flat.items()}
     tree: dict = {}
@@ -72,6 +78,8 @@ def _from_flat(flat: dict[str, np.ndarray], model: nn.Module) -> dict:
         return convert.flax_to_state_dict(tree, model)
     if isinstance(model, YOLOv4):
         return convert.yolo_flax_to_state_dict(tree, model)
+    if part:
+        return convert.part_flax_to_state_dict(tree, model)
     return convert.gdrn_flax_to_state_dict(tree, model)
 
 
@@ -80,14 +88,22 @@ def save_params_npz(path: str, model: nn.Module) -> None:
     np.savez(path, **_flatten(_to_flax(model)))
 
 
-def load_params_npz(path: str, model: nn.Module, strict: bool = True
-                    ) -> nn.Module:
+def load_params_npz(path: str, model: nn.Module, strict: bool = True,
+                    prefix: str = "") -> nn.Module:
     """Load a flat .npz of JAX-layout variables into the model, in place.
     strict=False keeps the model's own value for every variable the file
     lacks (a partial init, e.g. backbone weights under a whole GDRN).
-    Raises for an array of the file the model has no variable for, and
-    for a shape that differs."""
+    prefix: take only the file's variables under that scope
+    ('params.<prefix>.…', 'batch_stats.<prefix>.…'), without it, e.g. a
+    converted GDRN's geo_head into a TopDownGeoHead. Besides GDRN, DeepIM
+    and YOLOv4 the model may be a part the JAX package builds alone
+    (convert.part_key_map). Raises for an array of the file the model has
+    no variable for, and for a shape that differs."""
     raw = dict(np.load(path))
+    if prefix:
+        raw = {f"{c}.{k[len(c) + len(prefix) + 2:]}": v
+               for k, v in raw.items() for c in ("params", "batch_stats")
+               if k.startswith(f"{c}.{prefix}.")}
     flat = _flatten(_to_flax(model))
     missing = sorted(set(flat) - set(raw))
     if strict and missing:
@@ -148,13 +164,23 @@ class CheckpointManager:
         """Write the state at `step` (default state.step) when the step is
         a multiple of save_period or force; a step already written is not
         written again; under data parallel only rank 0 writes (every rank
-        holds the same state). Returns whether it wrote."""
+        holds the same state). A sharded state (parallel/mesh.py) is
+        written whole: every rank calls save, gathers, and rank 0 writes.
+        Returns whether it wrote."""
         step = state.step if step is None else int(step)
-        if not is_main():
-            return False
         if not force and (self.save_period <= 0
                           or step % self.save_period != 0):
             return False
+        if state.fsdp is None:
+            if not is_main():
+                return False
+            return self._write(state, step, state.opt.state_dict())
+        # sharded: every rank gathers the whole tensors, rank 0 writes
+        with gathered(state):
+            solver = state.opt.state_dict()
+            return self._write(state, step, solver) if is_main() else False
+
+    def _write(self, state: TrainState, step: int, solver: dict) -> bool:
         if os.path.exists(self._dir(step)):
             return False
         check_no_orbax_steps(self.directory)
@@ -164,7 +190,7 @@ class CheckpointManager:
         save_params_npz(os.path.join(tmp, "model.npz"), state.model)
         if state.teacher is not None:
             save_params_npz(os.path.join(tmp, "ema.npz"), state.teacher)
-        torch.save({"solver": state.opt.state_dict(), "step": step,
+        torch.save({"solver": solver, "step": step,
                     "host_rng": torch.get_rng_state()},
                    os.path.join(tmp, "solver.pt"))
         with open(os.path.join(tmp, MARKER), "w") as f:
@@ -184,11 +210,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def _load_weights(self, state: TrainState, step: int) -> None:
+        """The step's whole tensors into the student and teacher (a
+        sharded state keeps each rank's part of them)."""
         d = self._dir(step)
-        load_params_npz(os.path.join(d, "model.npz"), state.model)
-        ema = os.path.join(d, "ema.npz")
-        if state.teacher is not None and os.path.exists(ema):
-            load_params_npz(ema, state.teacher)
+        with gathered(state, write=True):
+            load_params_npz(os.path.join(d, "model.npz"), state.model)
+            ema = os.path.join(d, "ema.npz")
+            if state.teacher is not None and os.path.exists(ema):
+                load_params_npz(ema, state.teacher)
 
     def restore(self, state: TrainState, step: int | None = None
                 ) -> TrainState:

@@ -136,24 +136,47 @@ def init_state(cfg: Config, model: nn.Module) -> TrainState:
     return create_train_state(model, opt, with_ema=cfg.solver.ema_decay > 0)
 
 
-def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark):
+def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark,
+            extra_grads=None):
     """The tail of every step: the total (summed in sorted key order, as
-    jax.tree.leaves orders a dict), backward, the gradients averaged over
-    the ranks under data parallel (parallel/dist.py), the solver, the step
-    count, the EMA. Returns (state, metrics as detached 0-d tensors: this
-    rank's terms)."""
+    jax.tree.leaves orders a dict), backward, extra_grads (one tensor or
+    None per model parameter, in order) added to the gradients, the
+    gradients averaged over the ranks under data parallel (parallel/
+    dist.py; a sharded state's first reduce-scattered within the fsdp
+    group, parallel/mesh.py), the solver, the step count, the EMA, the
+    gathered parameters dropped. Returns (state, metrics as detached 0-d
+    tensors: this rank's terms)."""
     total = sum(ld[k] for k in sorted(ld))
     state.opt.zero_grad(set_to_none=True)
     total.backward()
-    average_gradients(state.model.parameters())
+    if extra_grads is not None:
+        add_gradients(state.model.parameters(), extra_grads)
+    if state.fsdp is not None:
+        state.fsdp.reduce_grads()
+    average_gradients(state.params())
     mark("backward")
     state.opt.step()
     state.step += 1
     state.update_ema(decay_fn)
+    if state.fsdp is not None:
+        state.fsdp.release()
     mark("optimizer_ema")
     metrics = {k: v.detach() for k, v in ld.items()}
     metrics["total_loss"] = total.detach()
     return state, metrics
+
+
+@torch.no_grad()
+def add_gradients(params, grads) -> None:
+    """p.grad += g for each parameter (g None: nothing; a parameter
+    without a gradient takes g)."""
+    for p, g in zip(params, grads):
+        if g is None:
+            continue
+        if p.grad is None:
+            p.grad = g.detach().clone()
+        else:
+            p.grad += g
 
 
 def make_train_step(cfg: Config, model: GDRN):

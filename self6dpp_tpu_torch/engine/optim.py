@@ -36,6 +36,12 @@ count and the Lookahead's count advance only then), the parameters left as
 they are on the other steps. The JAX package runs the elementwise chains
 on one flattened vector (sgd_gc, adamp and sgdp per leaf); that changes no
 arithmetic, only the order of the global-norm sum.
+
+Under parameter sharding (parallel/mesh.py) the solver holds this rank's
+part of each large parameter (reshard) and updates parts: the
+elementwise chains as they are, the global norm from the parts' squares
+summed over the fsdp group, the centralisation and the projection on the
+gathered leaf; state_dict and load_state_dict deal in whole tensors.
 """
 
 from __future__ import annotations
@@ -160,6 +166,9 @@ class Solver(torch.optim.Optimizer):
         self.kinds = list(kinds) if kinds is not None else [None] * len(ps)
         if len(self.kinds) != len(ps):
             raise ValueError(f"{len(self.kinds)} kinds for {len(ps)} params")
+        # per parameter, its parallel/mesh.py Shard when the solver holds
+        # this rank's part of it (reshard), else None
+        self.shards = [None] * len(ps)
         self.reset()
 
     @torch.no_grad()
@@ -189,14 +198,48 @@ class Solver(torch.optim.Optimizer):
     def _params(self) -> list[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
 
+    @torch.no_grad()
+    def reshard(self, leaves: Sequence[torch.Tensor], shards: Sequence) -> None:
+        """Update `leaves` (one per parameter, in order: a sharded one's
+        part, parallel/mesh.py) in place of the parameters from now on,
+        each state tensor cut as its Shard cuts the parameter."""
+        old = self._params()
+        if len(leaves) != len(old) or len(self.param_groups) != 1:
+            raise ValueError("reshard: one leaf per parameter, one group")
+        for p, q, spec in zip(old, leaves, shards):
+            st = self.state.pop(p, {})
+            self.state[q] = {k: spec.slice(v) if spec is not None
+                             and torch.is_tensor(v)
+                             and tuple(v.shape) == spec.full_shape
+                             else v for k, v in st.items()}
+        self.param_groups[0]["params"] = list(leaves)
+        self.shards = list(shards)
+
     def state_dict(self) -> dict:
+        """The state with every sharded tensor whole (collective under
+        sharding: every rank calls it)."""
         sd = super().state_dict()
+        for i, spec in enumerate(self.shards):
+            if spec is not None and i in sd["state"]:
+                sd["state"][i] = {k: spec.gather(v) if torch.is_tensor(v)
+                                  and v.ndim else v
+                                  for k, v in sd["state"][i].items()}
         sd["counts"] = {"count": self.count, "mini_step": self.mini_step}
         return sd
 
     def load_state_dict(self, state_dict: dict) -> None:
+        """A state of whole tensors (any grid's state_dict), each sharded
+        one cut to this rank's part."""
         sd = dict(state_dict)
         counts = sd.pop("counts")
+        if any(spec is not None for spec in self.shards):
+            sd["state"] = dict(sd["state"])
+            for i, spec in enumerate(self.shards):
+                if spec is not None and i in sd["state"]:
+                    sd["state"][i] = {
+                        k: spec.slice(v) if torch.is_tensor(v)
+                        and tuple(v.shape) == spec.full_shape else v
+                        for k, v in sd["state"][i].items()}
         super().load_state_dict(sd)
         self.count, self.mini_step = counts["count"], counts["mini_step"]
 
@@ -225,17 +268,34 @@ class Solver(torch.optim.Optimizer):
         self._update(params, grads)
 
     def _jax_layout(self, fn, *tensors):
-        """fn applied to each parameter's tensors in the JAX layout."""
+        """fn applied to each parameter's tensors in the JAX layout; a
+        sharded parameter's gathered whole first, and its part kept."""
         out = []
-        for kind, ts in zip(self.kinds, zip(*tensors)):
-            r = fn(*(to_jax_layout(t, kind) for t in ts))
-            out.append(from_jax_layout(r, kind, ts[0]))
+        for kind, spec, ts in zip(self.kinds, self.shards, zip(*tensors)):
+            if spec is not None:
+                ts = tuple(spec.gather(t) for t in ts)
+            r = from_jax_layout(fn(*(to_jax_layout(t, kind) for t in ts)),
+                                kind, ts[0])
+            out.append(spec.slice(r) if spec is not None else r)
         return out
+
+    def _norms(self, grads) -> list[Tensor]:
+        """Each parameter's gradient norm; a sharded one's from its parts'
+        squares summed over the fsdp group."""
+        norms = list(torch._foreach_norm(grads))
+        cut = [i for i, spec in enumerate(self.shards)
+               if spec is not None and spec.size > 1]
+        if cut:
+            sq = self.shards[cut[0]].all_reduce(
+                torch.stack([norms[i] ** 2 for i in cut]))
+            for i, v in zip(cut, sq.sqrt().unbind()):
+                norms[i] = v
+        return norms
 
     def _update(self, params, grads):
         grads = [torch.nan_to_num(g) for g in grads]
         if self.grad_clip_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = torch.linalg.vector_norm(torch.stack(self._norms(grads)))
             keep = norm < self.grad_clip_norm
             clipped = torch._foreach_mul(torch._foreach_div(grads, norm),
                                          self.grad_clip_norm)

@@ -25,10 +25,19 @@ noise) come from draw_geo_aug, a torch.Generator's, and the step takes
 them as an argument.
 
 Textured models (YCB-V) render their UVs and sample the class atlas
-(render_student_pose). Not ported here: the JAX pose step's emit_render
-argument and its extra_grads and refiner_vars inputs (the port's refiner
-is a module whose weights the caller sets); and the side programs that
-feed split_lab (make_lab_grad_fn, make_lab_fwd_fn, make_lab_pixel_fn).
+(render_student_pose). The LAB term runs in the mode cfg.self_sup.lab_impl
+names, each routed by build_self_train_step as the JAX package's
+jit_self_train_step routes it: 'pallas' (kernel B3), 'direct' (autograd
+of lab_loss), 'surrogate' (ops/color.py::lab_loss_surrogate), 'split_grad'
+(make_lab_grad_fn's parameter gradient, added to the step's through
+extra_grads) and 'pixel_split' (make_lab_fwd_fn's render and mask,
+make_lab_pixel_fn's value and image gradient, fed to the step as
+lab_linear). All five give the value and gradient of 'direct'; the JAX
+package keeps the three extra ones to dodge an XLA fusion cliff, which
+eager PyTorch does not have: the port keeps them only so that a config
+naming one runs as it does in JAX. Not ported: the JAX pose step's emit_render
+argument and its refiner_vars input (the port's refiner is a module
+whose weights the caller sets).
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from ..models.deepim import DeepIM
 from ..models.gdrn import GDRN
 from ..models.lpips import LPIPS, build_lpips
 from ..models.repj_refiner import repj_weak_loss
+from ..ops.color import lab_loss
 from ..ops.fps import fps_points
 from ..ops.geometry import compute_vf
 from ..ops.rasterizer import (compute_vertex_normals, rasterize_batch,
@@ -138,6 +148,19 @@ def student_teacher(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     tout = {k: v.float() for k, v in tout.items()}
     mark("teacher_fwd")
     return out, tout
+
+
+def pseudo_visibility(cfg: Config, tout: dict[str, Tensor]
+                      ) -> tuple[Tensor, Tensor]:
+    """The teacher's pseudo visibility mask, its mask probability above
+    0.5: at output_res (B,o,o) and at input_res (B,S,S)."""
+    s, o = cfg.model.input_res, cfg.model.output_res
+    prob = get_mask_prob(tout["mask_logits"],
+                         cfg.model.loss.mask_loss_type)[..., 0]
+    vis_lr = (prob > 0.5).float()
+    # nearest upsampling at an integer factor is a plain repeat
+    return vis_lr, vis_lr.repeat_interleave(s // o, 1) \
+                         .repeat_interleave(s // o, 2)
 
 
 def normal_render_args(cfg: Config, batch: dict[str, Tensor], rot: Tensor,
@@ -246,15 +269,8 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     (see gdrn_engine.event_marker)."""
     ss = cfg.self_sup
     ss_loss = dataclasses.replace(ss, lab_lw=0.0) if split_lab else ss
-    s, o = cfg.model.input_res, cfg.model.output_res
     out, tout = student_teacher(cfg, state, batch, mark)
-
-    t_vis_prob = get_mask_prob(tout["mask_logits"],
-                               cfg.model.loss.mask_loss_type)[..., 0]
-    pseudo_vis_lr = (t_vis_prob > 0.5).float()
-    # nearest upsampling at an integer factor is a plain repeat
-    pseudo_vis = pseudo_vis_lr.repeat_interleave(s // o, 1) \
-                              .repeat_interleave(s // o, 2)
+    pseudo_vis_lr, pseudo_vis = pseudo_visibility(cfg, tout)
     p_rot, p_trans = select_pseudo_pose(ss, batch, tout)
     if refine is not None:
         # no_grad, not inference_mode: the refined pose feeds the labels of
@@ -323,13 +339,122 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
         raise ValueError(f"input_res {s} is not a multiple of output_res {o}")
 
     def train_step(state: TrainState, batch: dict[str, Tensor], mark=None,
-                   lab_linear=None):
+                   lab_linear=None, extra_grads=None):
         mark = mark or no_mark
         ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
                                   split_lab, lab_linear, refine)
-        return descend(state, ld, decay_fn, mark)
+        return descend(state, ld, decay_fn, mark, extra_grads)
 
     return train_step
+
+
+def _lab_render(cfg: Config, state: TrainState, batch: dict[str, Tensor],
+                impl: str) -> tuple[Tensor, Tensor]:
+    """The student's render (ROI frame, color (B,S,S,3), differentiable in
+    the student's parameters) and the teacher's pseudo visibility mask
+    (B,S,S): the pose step's own forward, mask and render
+    (student_teacher, pseudo_visibility, render_student_pose), so the side
+    steps see what forward_losses sees."""
+    out, tout = student_teacher(cfg, state, batch)
+    _, vis = pseudo_visibility(cfg, tout)
+    ren = render_student_pose(cfg, batch, out["rot"], out["trans"],
+                              impl=impl)
+    return ren["color"], vis
+
+
+def make_lab_grad_fn(cfg: Config, model: GDRN, impl: str = "kernel"):
+    """Returns lab_grad(state, batch) -> (value, grads): the LAB term alone
+    (lab_lw * lab_loss of the masked render against the masked image,
+    masked by the teacher's pseudo visibility) and its gradient in each
+    student parameter (zeros where it has none), for lab_impl
+    'split_grad'. impl: the render's, as make_self_train_step's."""
+    ss = cfg.self_sup
+
+    def lab_grad(state: TrainState, batch: dict[str, Tensor]):
+        ren, vis = _lab_render(cfg, state, batch, impl)
+        val = ss.lab_lw * lab_loss(ren * vis[..., None],
+                                   batch["roi_img"] * vis[..., None],
+                                   mask=vis, no_l=ss.lab_no_l)
+        params = list(state.model.parameters())
+        grads = torch.autograd.grad(val, params, allow_unused=True)
+        return val.detach(), [torch.zeros_like(p) if g is None else g
+                              for p, g in zip(params, grads)]
+
+    return lab_grad
+
+
+def make_lab_fwd_fn(cfg: Config, model: GDRN, impl: str = "kernel"):
+    """Returns fwd(state, batch) -> (ren_color (B,S,S,3), vis (B,S,S)),
+    without gradients: the first side step of lab_impl 'pixel_split', the
+    render and mask the pose step then makes again."""
+    @torch.no_grad()
+    def fwd(state: TrainState, batch: dict[str, Tensor]):
+        return _lab_render(cfg, state, batch, impl)
+
+    return fwd
+
+
+def make_lab_pixel_fn(cfg: Config):
+    """Returns pix(ren_color, roi_img, vis) -> (value, g): lab_lw *
+    lab_loss of the masked pair and its gradient in the masked render,
+    for lab_impl 'pixel_split'; the pose step adds g to its masked
+    render's cotangent (lab_linear). Computed by autograd of the plain
+    lab_loss on every device (kernel B3 computes the same function; it
+    stays the 'pallas' mode's)."""
+    ss = cfg.self_sup
+
+    def pix(ren_color: Tensor, roi_img: Tensor, vis: Tensor):
+        ren_m = (ren_color * vis[..., None]).detach().requires_grad_(True)
+        img_m = roi_img * vis[..., None]
+        with torch.enable_grad():
+            val = ss.lab_lw * lab_loss(ren_m, img_m, mask=vis,
+                                       no_l=ss.lab_no_l)
+            g, = torch.autograd.grad(val, ren_m)
+        return val.detach(), g
+
+    return pix
+
+
+def build_self_train_step(cfg: Config, model: GDRN,
+                          lpips: LPIPS | None = None, impl: str = "kernel",
+                          ema_update_every: int = 1,
+                          refiner: tuple[DeepIM, Config] | None = None):
+    """The pose step for cfg.self_sup.lab_impl, routed as the JAX
+    package's jit_self_train_step routes it: step(state, batch, mark=None)
+    -> (state, metrics). 'direct', 'surrogate' and 'pallas' are
+    make_self_train_step's step; 'pixel_split' runs make_lab_fwd_fn and
+    make_lab_pixel_fn first and feeds their (value, g) as lab_linear;
+    'split_grad' runs make_lab_grad_fn first, adds its gradients to the
+    step's (extra_grads), and its value to the metrics' LAB term and
+    total. Raises for an unknown mode."""
+    ss = cfg.self_sup
+    mode = ss.lab_impl if ss.lab_lw > 0 else "direct"
+    check_supported(dataclasses.replace(ss, lab_impl=mode))
+    split = mode in ("pixel_split", "split_grad")
+    step = make_self_train_step(cfg, model, lpips, split_lab=split,
+                                impl=impl, ema_update_every=ema_update_every,
+                                refiner=refiner)
+    if mode == "pixel_split":
+        fwd, pix = make_lab_fwd_fn(cfg, model, impl), make_lab_pixel_fn(cfg)
+
+        def pixel_split_step(state, batch, mark=None):
+            ren, vis = fwd(state, batch)
+            return step(state, batch, mark,
+                        lab_linear=pix(ren, batch["roi_img"], vis))
+
+        return pixel_split_step
+    if mode == "split_grad":
+        lab_grad = make_lab_grad_fn(cfg, model, impl)
+
+        def split_grad_step(state, batch, mark=None):
+            val, grads = lab_grad(state, batch)
+            state, metrics = step(state, batch, mark, extra_grads=grads)
+            metrics["loss_color_ab_obj"] = val
+            metrics["total_loss"] = metrics["total_loss"] + val
+            return state, metrics
+
+        return split_grad_step
+    return step
 
 
 def draw_geo_aug(cfg: Config, batch: dict[str, Tensor],

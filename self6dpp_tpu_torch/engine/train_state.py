@@ -29,6 +29,20 @@ class TrainState:
     model: nn.Module                 # the student
     teacher: nn.Module | None        # mean teacher (None if EMA is off)
     opt: torch.optim.Optimizer
+    # the sharded parameters (parallel/mesh.py::shard_state), or None
+    fsdp: object | None = None
+
+    def params(self) -> list[torch.Tensor]:
+        """The student's parameters as the solver updates them (a sharded
+        one's part in its place)."""
+        if self.fsdp is not None:
+            return self.fsdp.student.leaves()
+        return list(self.model.parameters())
+
+    def teacher_params(self) -> list[torch.Tensor]:
+        if self.fsdp is not None:
+            return self.fsdp.teacher.leaves()
+        return list(self.teacher.parameters())
 
     @torch.no_grad()
     def update_ema(self, decay_fn: Callable[[int], float]) -> None:
@@ -37,10 +51,10 @@ class TrainState:
         if self.teacher is None:
             return
         d = _f32(decay_fn(self.step))
-        ema = list(self.teacher.parameters())
+        ema = self.teacher_params()
         torch._foreach_mul_(ema, float(d))
         torch._foreach_add_(ema, torch._foreach_mul(
-            list(self.model.parameters()), float(_f32(1) - d)))
+            self.params(), float(_f32(1) - d)))
 
 
 def ema_decay_schedule(base_decay: float, ramp_iters: int = 2000):

@@ -22,6 +22,7 @@ import torch
 
 from ..config import Config
 from ..parallel.dist import is_main, mean_metrics
+from ..parallel.mesh import current_mesh, gathered, shard_state
 from .checkpoint import CheckpointManager
 from .train_state import TrainState
 from .writers import EventStorage, JSONWriter, TensorboardWriter, \
@@ -51,10 +52,15 @@ def do_train(
     given, gets one {'wait_s', 'step_s'} per iteration: the host seconds
     spent getting the batch onto the device and in the step's call.
     Under data parallel (parallel/dist.py) the metrics are the ranks'
-    means, and only rank 0 writes, saves, evaluates and draws."""
+    means, and only rank 0 writes, saves, evaluates and draws. Under the
+    rank grid of make_mesh with fsdp > 1 the state is sharded first
+    (parallel/mesh.py::shard_state)."""
     out = f"{cfg.output_dir}/{cfg.exp_name}"
     ckpt = CheckpointManager(f"{out}/ckpt", max_to_keep=cfg.ckpt_max_to_keep,
                              save_period=cfg.ckpt_period)
+    mesh = current_mesh()
+    if mesh is not None and mesh.fsdp > 1 and state.fsdp is None:
+        state = shard_state(state, mesh)
     state, start_iter = ckpt.resume_or_load(state, resume=resume)
     if start_iter > 0:
         logger.info(f"resumed from iteration {start_iter}")
@@ -103,19 +109,25 @@ def do_train(
             timings.append({"wait_s": t1 - t0,
                             "step_s": time.perf_counter() - t1})
         pending.append((it + 1, mean_metrics(metrics)))
-        vis_due = (main and vis_fn is not None and cfg.vis_period > 0
+        vis_due = (vis_fn is not None and cfg.vis_period > 0
                    and (it + 1) % cfg.vis_period == 0)
-        eval_due = (main and eval_fn is not None and cfg.test.eval_period > 0
+        eval_due = (eval_fn is not None and cfg.test.eval_period > 0
                     and (it + 1) % cfg.test.eval_period == 0)
         ckpt_due = cfg.ckpt_period > 0 and (it + 1) % cfg.ckpt_period == 0
         if ((it + 1) % cfg.log_period == 0 or vis_due or eval_due or ckpt_due
                 or it + 1 == cfg.solver.total_iters):
             flush()
+        # rank 0 draws and evaluates; a sharded state is gathered whole on
+        # every rank around it (parallel/mesh.py)
         if vis_due:
-            vis_fn(state, batch, storage)
+            with gathered(state):
+                if main:
+                    vis_fn(state, batch, storage)
         ckpt.save(state, step=it + 1)
         if eval_due:
-            tables = eval_fn(state)
+            with gathered(state):
+                tables = eval_fn(state) if main else None
+        if eval_due and main:
             avg = tables.get("avg", {})
             logger.info(f"eval @ {it + 1}: {avg or tables}")
             storage.put_scalars(**{

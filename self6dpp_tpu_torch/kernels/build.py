@@ -47,6 +47,9 @@ def nvcc() -> str:
 
 # the host routines (csrc/*.c): plain C, no GPU
 CC_FLAGS = ("-O3", "-std=c11", "-shared", "-fPIC")
+# per-source additions: the FPS must round as numpy does (no multiply-add
+# contraction; -std=c11 implies it under gcc, stated anyway)
+CC_EXTRA = {"fps": ("-ffp-contract=off",)}
 
 
 def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> Path:
@@ -141,14 +144,15 @@ def host_cc() -> str:
 
 def load_host(name: str) -> ctypes.CDLL:
     """The library of the host routine csrc/<name>.c, built first (once per
-    content) with the host C compiler. Raises with the compiler's output on
-    failure."""
-    lib = _lib_path(name, ".c", CC_FLAGS)
+    content) with the host C compiler, CC_FLAGS and the source's CC_EXTRA.
+    Raises with the compiler's output on failure."""
+    flags = CC_FLAGS + CC_EXTRA.get(name, ())
+    lib = _lib_path(name, ".c", flags)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        res = subprocess.run([host_cc(), *CC_FLAGS, "-o", tmp,
+        res = subprocess.run([host_cc(), *flags, "-o", tmp,
                               str(SRC_DIR / f"{name}.c")],
                              capture_output=True, text=True)
         if res.returncode != 0:

@@ -5,8 +5,9 @@ compute_self_loss_pose).
 
 Pose-mode terms: the rendered-mask loss against the teacher's pseudo mask
 (RW_BCE with edge weights, dice or L1); LAB, as a given (value, gradient)
-pair (lab_linear), through kernel B3 or by autograd of lab_loss, the
-gradient of the first two entering through InjectGrad; LPIPS; MS-SSIM;
+pair (lab_linear), through kernel B3, by autograd of lab_loss or through
+lab_loss_surrogate (lab_impl), the gradient of the first two entering
+through InjectGrad; LPIPS; MS-SSIM;
 the chamfer between the backprojected rendered and observed depths; xyz
 and region init-pred (student vs teacher); pseudo-pose PM and trans; the
 vf and norm maps against the pseudo pose's vector field and rendered
@@ -24,7 +25,7 @@ from torch import Tensor
 
 from ..config import SelfSupConfig
 from ..ops.chamfer import chamfer_loss
-from ..ops.color import lab_loss
+from ..ops.color import lab_loss, lab_loss_surrogate
 from ..ops.geometry import backproject_depth
 from ..ops.lab_cuda import lab_value_grad_scaled, lab_value_grad_scaled_plain
 from ..ops.ssim import ms_ssim
@@ -148,11 +149,13 @@ def compute_self_loss_geo(cfg: SelfSupConfig, pred: dict[str, Tensor],
     return loss
 
 
+LAB_IMPLS = ("pixel_split", "split_grad", "surrogate", "direct", "pallas")
+
+
 def check_supported(cfg: SelfSupConfig) -> None:
-    """Raise for what the pose-mode loss suite does not port."""
-    if cfg.lab_lw > 0 and cfg.lab_impl not in ("pallas", "direct"):
-        raise ValueError(f"lab_impl {cfg.lab_impl!r}: the port has 'pallas' "
-                         "(its CUDA kernel) and 'direct'")
+    """Raise for a lab_impl the JAX package does not have either."""
+    if cfg.lab_lw > 0 and cfg.lab_impl not in LAB_IMPLS:
+        raise ValueError(f"unknown lab_impl: {cfg.lab_impl!r}")
 
 
 def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
@@ -220,7 +223,10 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
     if cfg.ms_ssim_lw > 0:
         loss["loss_ms_ssim"] = cfg.ms_ssim_lw * (1.0 - ms_ssim(img_m, ren_m))
     if cfg.lab_lw > 0 and cfg.lab_impl != "pallas":
-        loss["loss_color_ab_obj"] = cfg.lab_lw * lab_loss(
+        # surrogate: the same value and gradient through sum(g * ren_m);
+        # split_grad and pixel_split reach here only unsplit (direct)
+        fn = lab_loss_surrogate if cfg.lab_impl == "surrogate" else lab_loss
+        loss["loss_color_ab_obj"] = cfg.lab_lw * fn(
             ren_m, img_m, mask=pseudo_vis, no_l=cfg.lab_no_l)
 
     if cfg.depth_chamfer_lw > 0 and "roi_depth" in batch:

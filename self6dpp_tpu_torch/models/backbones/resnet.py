@@ -141,6 +141,7 @@ class ResNetBackbone(nn.Module):
             raise ValueError(f"unknown backbone: {arch!r}")
         kind, depths = _STAGE_SPECS[arch]
         deep = arch.endswith("d")
+        self.arch = arch
         self.out_indices = tuple(out_indices)
         if deep:
             self.conv1 = nn.Sequential(

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as Fnn
 from torch import Tensor, nn
 
-from ..parallel.dist import global_sum, world_size
+from ..parallel.dist import data_size, global_sum
 
 
 def get_act(name: str) -> nn.Module:
@@ -59,10 +59,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if world_size() > 1:
+        if data_size() > 1:
             # the global batch's statistics, as Flax computes them under
             # jit on a data mesh: sums of x and x² over every rank
-            n = xf.numel() // xf.shape[1] * world_size()
+            n = xf.numel() // xf.shape[1] * data_size()
             sums = global_sum(torch.stack([xf.sum((0, 2, 3)),
                                            (xf * xf).sum((0, 2, 3))]))
             mean, ex2 = sums[0] / n, sums[1] / n

@@ -14,6 +14,18 @@ def quat_normalize(q: Tensor, eps: float = 1e-8) -> Tensor:
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + eps)
 
 
+def quat_mul(a: Tensor, b: Tensor) -> Tensor:
+    """Hamilton product of two (..., 4) quaternions."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def quat_to_mat(q: Tensor, eps: float = 1e-8) -> Tensor:
     """(..., 4) unnormalized quaternion -> (..., 3, 3) rotation matrix."""
     q = quat_normalize(q, eps)
@@ -27,6 +39,42 @@ def quat_to_mat(q: Tensor, eps: float = 1e-8) -> Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def mat_to_quat(m: Tensor, eps: float = 1e-9) -> Tensor:
+    """(..., 3, 3) rotation -> (..., 4) unit quaternion with w >= 0: the
+    four Shepperd candidates, the one of the largest diagonal combination
+    taken, normalised."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)          # (..., 4, 4)
+    mags = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    idx = mags.argmax(-1)[..., None, None].expand(*mags.shape[:-1], 1, 4)
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :], eps)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def axangle_to_quat(axis: Tensor, angle: Tensor, eps: float = 1e-8
+                    ) -> Tensor:
+    """axis (..., 3) (any length), angle (...,) -> quaternion (..., 4)."""
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + eps)
+    half = angle[..., None] / 2.0
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
+def axangle_to_mat(axis: Tensor, angle: Tensor, eps: float = 1e-8
+                   ) -> Tensor:
+    return quat_to_mat(axangle_to_quat(axis, angle, eps))
 
 
 def rot6d_to_mat(d6: Tensor) -> Tensor:
@@ -53,6 +101,11 @@ def rot6d_to_mat(d6: Tensor) -> Tensor:
     return torch.stack([x, y, z], dim=-1)  # columns
 
 
+def mat_to_rot6d(m: Tensor) -> Tensor:
+    """(..., 3, 3) -> (..., 6): the first two columns."""
+    return torch.cat([m[..., :, 0], m[..., :, 1]], dim=-1)
+
+
 def allo_to_ego_mat(translation: Tensor, rot_allo: Tensor,
                     eps: float = 1e-4) -> Tensor:
     """Rotate an allocentric rotation by the rotation carrying the optical
@@ -68,6 +121,20 @@ def allo_to_ego_mat(translation: Tensor, rot_allo: Tensor,
     q = torch.cat([torch.cos(angle / 2.0)[..., None],
                    axis * torch.sin(angle / 2.0)[..., None]], dim=-1)
     return quat_to_mat(q) @ rot_allo
+
+
+def ego_to_allo_mat(translation: Tensor, rot_ego: Tensor,
+                    eps: float = 1e-4) -> Tensor:
+    """The inverse of allo_to_ego_mat (core/utils/utils.py:89-132)."""
+    obj_ray = translation / (
+        torch.linalg.norm(translation, dim=-1, keepdim=True) + eps)
+    angle = torch.arccos(obj_ray[..., 2].clamp(-1.0 + 1e-7, 1.0 - 1e-7))
+    axis = torch.stack([-obj_ray[..., 1], obj_ray[..., 0],
+                        torch.zeros_like(obj_ray[..., 0])], dim=-1)
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + eps)
+    q = torch.cat([torch.cos(-angle / 2.0)[..., None],
+                   axis * torch.sin(-angle / 2.0)[..., None]], dim=-1)
+    return quat_to_mat(q) @ rot_ego
 
 
 def transform_pts(pts: Tensor, R: Tensor, t: Tensor | None = None) -> Tensor:
@@ -139,3 +206,8 @@ def rot_angle_deg(R1: Tensor, R2: Tensor) -> Tensor:
     tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
     cos = torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0)
     return torch.rad2deg(torch.arccos(cos))
+
+
+def quat_from_two_mats_angle(R1: Tensor, R2: Tensor) -> Tensor:
+    """rot_angle_deg under the JAX package's other name."""
+    return rot_angle_deg(R1, R2)

@@ -25,9 +25,11 @@ ims_per_batch, in rank order:
 With one process (or none initialised) each of these is the identity, so
 a single-process run computes exactly what it did without this module.
 
-The JAX mesh's fsdp axis shards parameters and changes no number; the
-port runs data parallel over every rank and does not shard parameters
-(DistConfig.mesh_shape is read by nothing here).
+Under a (data, fsdp) rank grid (parallel/mesh.py::make_mesh, from
+DistConfig.mesh_shape) every rank of one fsdp group takes the same
+records, as the JAX mesh's batch sharding P(data) does, so each of these
+reductions runs over the data group alone: data_size() ranks, this rank's
+data_rank() among them. Without a grid the data group is every rank.
 """
 
 from __future__ import annotations
@@ -98,6 +100,31 @@ def rank() -> int:
     return dist.get_rank() if world_size() > 1 else 0
 
 
+# the data group of the rank grid (parallel/mesh.py::make_mesh): None is
+# every rank
+_DATA = {"group": None, "size": None, "index": None}
+
+
+def set_data_group(group, size: int, index: int) -> None:
+    """Make the reductions below run over `group` (size ranks, this rank
+    at index among them); group None with size None: every rank again."""
+    _DATA.update(group=group, size=size, index=index)
+
+
+def data_size() -> int:
+    """The number of ranks that take different records."""
+    return _DATA["size"] if _DATA["size"] is not None else world_size()
+
+
+def data_rank() -> int:
+    """This rank's index among them: its share of the record stream."""
+    return _DATA["index"] if _DATA["index"] is not None else rank()
+
+
+def _group():
+    return _DATA["group"] if _DATA["group"] is not None else dist.group.WORLD
+
+
 def is_main() -> bool:
     """Whether this process writes (checkpoints, metrics, logs): rank 0."""
     return rank() == 0
@@ -106,15 +133,15 @@ def is_main() -> bool:
 def global_sum(x: Tensor) -> Tensor:
     """x summed over the ranks, differentiable: the backward sums the
     cotangent over the ranks (torch.distributed.nn's all_reduce)."""
-    if world_size() == 1:
+    if data_size() == 1:
         return x
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(x)
+    return all_reduce(x, group=_group())
 
 
 def global_mean(x: Tensor) -> Tensor:
     """The ranks' mean of x, differentiable."""
-    w = world_size()
+    w = data_size()
     return x if w == 1 else global_sum(x) / w
 
 
@@ -124,7 +151,7 @@ def batch_denom(s: Tensor) -> Tensor:
     max(s, 1) with one rank. A rank's term numerator / batch_denom(s)
     then averages over the ranks (as average_gradients averages their
     gradients) to the global batch's numerator over max(S, 1)."""
-    w = world_size()
+    w = data_size()
     if w == 1:
         return s.clamp_min(1.0)
     return global_sum(s.detach()).clamp_min(1.0) / w
@@ -134,17 +161,17 @@ def rank_share(s: Tensor) -> Tensor | None:
     """max(s, 1) / batch_denom(s): the factor that turns a term a function
     normalised by its own batch's max(s, 1) (kernel B3's) into this rank's
     share of the global term; None with one rank."""
-    if world_size() == 1:
+    if data_size() == 1:
         return None
     return s.detach().clamp_min(1.0) / batch_denom(s)
 
 
 def global_max(x: Tensor) -> Tensor:
     """x's maximum over the ranks (no gradient)."""
-    if world_size() == 1:
+    if data_size() == 1:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=_group())
     return y
 
 
@@ -153,14 +180,14 @@ def average_gradients(params) -> None:
     """Each parameter's gradient averaged over the ranks, in one
     all-reduce over their flattened concatenation (parameters without a
     gradient are skipped; every rank's model has the same ones)."""
-    w = world_size()
+    w = data_size()
     if w == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_group())
     flat /= w
     torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
         flat.split([g.numel() for g in grads]), grads)])
@@ -170,12 +197,12 @@ def average_gradients(params) -> None:
 def mean_metrics(metrics: dict[str, Tensor]) -> dict[str, Tensor]:
     """Each 0-d metric's mean over the ranks (the global batch's loss
     terms), in one all-reduce; every rank must hold the same keys."""
-    w = world_size()
+    w = data_size()
     if w == 1 or not metrics:
         return metrics
     keys = sorted(metrics)
     stack = torch.stack([metrics[k].float().reshape(()) for k in keys])
-    dist.all_reduce(stack)
+    dist.all_reduce(stack, group=_group())
     stack /= w
     return dict(zip(keys, stack.unbind()))
 

@@ -37,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import make_mesh
 from ..parallel.dist import (add_distributed_args,
                              maybe_init_distributed_from_args)
 
@@ -180,6 +181,9 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     dev = maybe_init_distributed_from_args(
         args, resolve_device(args.device or device))
     cfg = apply_overrides(load_config(args.config), args.opts)
+    # the (data, fsdp) rank grid of dist.mesh_shape, before any loader
+    # takes its share of the records (parallel/mesh.py)
+    make_mesh(cfg.dist)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
 
     check_no_orbax_steps(ckpt_dir(cfg))
@@ -205,7 +209,8 @@ def main(argv=None, device=None, impl: str = "kernel") -> dict:
     iters_per_epoch = max(1, len(ds) // cfg.solver.ims_per_batch)
     ema_every = (max(1, ss.teacher_update_freq) * iters_per_epoch
                  if ss.teacher_update_freq > 0 else 1)
-    pose_step = se.make_self_train_step(
+    # the LAB term in its configured mode (self_sup.lab_impl)
+    pose_step = se.build_self_train_step(
         cfg, model, lpips, impl=impl, ema_update_every=ema_every,
         refiner=build_refiner_of(cfg, dev))
     geo_step = se.make_self_geo_train_step(cfg, model,

@@ -37,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import make_mesh
 from ..parallel.dist import (add_distributed_args, is_main,
                              maybe_init_distributed_from_args)
 
@@ -167,6 +168,9 @@ def main(argv=None, device=None) -> dict:
     dev = maybe_init_distributed_from_args(
         args, resolve_device(args.device or device))
     cfg = apply_overrides(load_config(args.config), args.opts)
+    # the (data, fsdp) rank grid of dist.mesh_shape, before any loader
+    # takes its share of the records (parallel/mesh.py)
+    make_mesh(cfg.dist)
     setup_logger(os.path.join(cfg.output_dir, cfg.exp_name))
     meta = get_meta(cfg.data.test_datasets[0])
     ycfg = YoloConfig(num_classes=meta.num_objects,

@@ -157,9 +157,9 @@ def test_two_ranks_equal_one_rank_on_the_global_batch(tmp_path):
 
 
 def test_loader_ranks_take_disjoint_shards(monkeypatch):
-    """GDRNDataset.batches' training stream under two ranks (rank and
-    world patched in): rank r takes [r::2] of the one stream every rank
-    draws, so two ranks' batches are disjoint and together the first
+    """GDRNDataset.batches' training stream under two ranks (the data
+    rank and size patched in): rank r takes [r::2] of the one stream every
+    rank draws, so two ranks' batches are disjoint and together the first
     global batches of the one-rank stream."""
     from self6dpp_tpu_torch import config as tc
     from self6dpp_tpu_torch.data import loader
@@ -171,8 +171,8 @@ def test_loader_ranks_take_disjoint_shards(monkeypatch):
                              np.zeros(3))] * 2) for i in range(5)]
 
     def keys_of(r, world, n_batches=2):
-        monkeypatch.setattr(loader, "rank", lambda: r)
-        monkeypatch.setattr(loader, "world_size", lambda: world)
+        monkeypatch.setattr(loader, "data_rank", lambda: r)
+        monkeypatch.setattr(loader, "data_size", lambda: world)
         ds = loader.GDRNDataset(tc.gdrn_synthetic_smoke(), recs, None, None,
                                 train=True, seed=3, device="cpu")
         ds.make_samples = lambda keys, pool=None: [

@@ -302,10 +302,11 @@ def test_self_loss_pose_lab_linear_matches_jax(lpips_pair):
                                 dict(depth_chamfer_lw=1.0), dict(vf_lw=1.0),
                                 dict(norm_lw=1.0), dict(lab_impl="surrogate")])
 def test_self_loss_pose_names_the_later_slice(kw):
-    """The TPU-only LAB modes raise, naming what is missing; LPIPS,
-    MS-SSIM and the chamfer, once of a later slice, now give their terms,
-    and so do vf and norm (held against JAX's on seeded student maps and
-    pseudo labels)."""
+    """LPIPS, MS-SSIM and the chamfer, once of a later slice, now give
+    their terms, and so do vf and norm (held against JAX's on seeded
+    student maps and pseudo labels) and the LAB mode 'surrogate' (against
+    JAX's and the port's 'direct' term); an unknown LAB mode raises,
+    naming lab_impl."""
     _, tcfg = self_cfgs(**kw)
     ren, pred, pseudo, batch = loss_inputs()
     ported = {"perceptual_lw": "loss_percep_obj", "ms_ssim_lw": "loss_ms_ssim",
@@ -334,8 +335,20 @@ def test_self_loss_pose_names_the_later_slice(kw):
             np.testing.assert_allclose(ld[ported[name]].item(),
                                        float(jld[ported[name]]), rtol=RTOL)
         return
-    with pytest.raises(ValueError, match="slice|lab_impl"):
-        tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch)
+    jcfg = jc.SelfSupConfig(**{f.name: getattr(tcfg, f.name)
+                               for f in dataclasses.fields(tcfg)})
+    jld = jsl.compute_self_loss_pose(
+        jcfg, *({k: jnp.asarray(v.numpy()) for k, v in d.items()}
+                for d in (ren, pred, pseudo, batch)))
+    ld = tsl.compute_self_loss_pose(tcfg, ren, pred, pseudo, batch)
+    direct = tsl.compute_self_loss_pose(
+        dataclasses.replace(tcfg, lab_impl="direct"), ren, pred, pseudo, batch)
+    term = "loss_color_ab_obj"
+    np.testing.assert_allclose(ld[term].item(), float(jld[term]), rtol=RTOL)
+    assert ld[term].item() == direct[term].item()
+    with pytest.raises(ValueError, match="lab_impl"):
+        tsl.compute_self_loss_pose(dataclasses.replace(tcfg, lab_impl="fused"),
+                                   ren, pred, pseudo, batch)
 
 
 def test_inject_grad_adds_to_the_cotangent():
