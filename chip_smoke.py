@@ -4299,7 +4299,7 @@ def run_trace(device):
     zero_kernel_launches()
     t0 = time.perf_counter()
     with profiling.trace(TRACE_DIR) as prof:
-        with profiling.annotate("stage2_step"):
+        with profiling.span("stage2_step"):
             step(state, batch)
         torch.cuda.synchronize()
     inside = (time.perf_counter() - t0) * 1e3

@@ -28,6 +28,7 @@ from ..ops.flow import flow_from_depth, relative_pose_KT
 from ..ops.rasterizer import RasterOut, rasterize_batch
 from ..ops.zoom import (bboxes_from_pose, centers_2d_from_pose, crop_resize,
                         deepim_boxes, zoom_K)
+from ..utils.profiling import span
 from . import gdrn_engine
 from .gdrn_engine import descend, no_mark
 from .train_state import TrainState, ema_decay_schedule
@@ -64,21 +65,24 @@ def _render_inputs(cfg: DeepIMConfig, batch: dict[str, Tensor], rot: Tensor,
     h, w = cfg.input_h, cfg.input_w
     K = batch["K"]
     verts = batch["verts"]
-    v_b = verts.expand(rot.shape[0], *verts.shape[-2:])
-    ren_boxes = bboxes_from_pose(v_b, K, rot, trans)
-    centers = centers_2d_from_pose(K, rot, trans)
-    crop_boxes, _ = deepim_boxes(ren_boxes, centers,
-                                 obs_boxes=batch.get("obs_box"),
-                                 lamb=cfg.zoom_lamb, out_hw=(h, w))
-    Kz = zoom_K(K, crop_boxes, (h, w))
+    with span("refine.boxes"):
+        v_b = verts.expand(rot.shape[0], *verts.shape[-2:])
+        ren_boxes = bboxes_from_pose(v_b, K, rot, trans)
+        centers = centers_2d_from_pose(K, rot, trans)
+        crop_boxes, _ = deepim_boxes(ren_boxes, centers,
+                                     obs_boxes=batch.get("obs_box"),
+                                     lamb=cfg.zoom_lamb, out_hw=(h, w))
+        Kz = zoom_K(K, crop_boxes, (h, w))
     ren = rasterize_batch(verts, batch["faces"], batch["colors"], Kz, rot,
                           trans, height=h, width=w, device=rot.device,
                           **raster_kw)
-    obs = crop_resize(batch["obs_img"], crop_boxes, h, w)
-    x = torch.cat([ren.attr[..., :3], obs], dim=-1)
-    if cfg.in_channels == 8:
-        obs_mask = crop_resize(batch["obs_mask"][..., None], crop_boxes, h, w)
-        x = torch.cat([x, ren.mask[..., None], obs_mask], dim=-1)
+    with span("refine.crop"):
+        obs = crop_resize(batch["obs_img"], crop_boxes, h, w)
+        x = torch.cat([ren.attr[..., :3], obs], dim=-1)
+        if cfg.in_channels == 8:
+            obs_mask = crop_resize(batch["obs_mask"][..., None], crop_boxes,
+                                   h, w)
+            x = torch.cat([x, ren.mask[..., None], obs_mask], dim=-1)
     return x, Kz, crop_boxes, ren
 
 
@@ -115,7 +119,8 @@ def make_refine_fn(cfg: Config, model: DeepIM, n_iter: int,
     The network runs under the compute dtype's autocast (none for float32
     or a model whose parameters are in the compute dtype). mark(name), if
     given, is called after each iteration's render (and zoom), its labels,
-    its network forward and its loss."""
+    its network forward and its loss. Called outside a step, refine is a
+    root span (utils/profiling.py)."""
     dcfg = cfg.deepim
     rkw = dict(tile_px=cfg.renderer.tile_px,
                faces_per_tile=cfg.renderer.faces_per_tile,
@@ -126,26 +131,34 @@ def make_refine_fn(cfg: Config, model: DeepIM, n_iter: int,
 
     def refine(batch: dict[str, Tensor], init_rot: Tensor, init_trans: Tensor,
                mark=no_mark):
-        rot, trans = init_rot.detach(), init_trans.detach()
-        sums: dict[str, Tensor] = {}
-        for _ in range(n_iter):
-            x, Kz, _, ren = _render_inputs(dcfg, batch, rot, trans, rkw)
-            mark("render")
+        with span("refine", root=True):
+            rot, trans = init_rot.detach(), init_trans.detach()
+            sums: dict[str, Tensor] = {}
+            for _ in range(n_iter):
+                with span("render"):
+                    x, Kz, _, ren = _render_inputs(dcfg, batch, rot, trans,
+                                                   rkw)
+                mark("render")
+                if with_loss:
+                    with span("flow_gt"):
+                        lb = _loss_labels(cfg, batch, ren, Kz, rot, trans,
+                                          rkw)
+                    mark("flow_gt")
+                with span("network_fwd"), torch.autocast(
+                        rot.device.type, dtype=compute,
+                        enabled=model.dtype != compute):
+                    out = model(x, rot, trans, Kz,
+                                obj_class=batch.get("roi_cls"))
+                mark("network_fwd")
+                if with_loss:
+                    with span("loss"):
+                        for k, v in deepim_loss(dcfg, out, lb).items():
+                            sums[k] = sums[k] + v if k in sums else v
+                    mark("loss")
+                rot, trans = out["rot"].detach(), out["trans"].detach()
             if with_loss:
-                lb = _loss_labels(cfg, batch, ren, Kz, rot, trans, rkw)
-                mark("flow_gt")
-            with torch.autocast(rot.device.type, dtype=compute,
-                                enabled=model.dtype != compute):
-                out = model(x, rot, trans, Kz, obj_class=batch.get("roi_cls"))
-            mark("network_fwd")
-            if with_loss:
-                for k, v in deepim_loss(dcfg, out, lb).items():
-                    sums[k] = sums[k] + v if k in sums else v
-                mark("loss")
-            rot, trans = out["rot"].detach(), out["trans"].detach()
-        if with_loss:
-            return rot, trans, {k: v / n_iter for k, v in sums.items()}
-        return rot, trans
+                return rot, trans, {k: v / n_iter for k, v in sums.items()}
+            return rot, trans
 
     return refine
 
@@ -202,10 +215,11 @@ def make_train_step(cfg: Config, model: DeepIM, n_iter: int | None = None,
 
     def train_step(state: TrainState, batch: dict[str, Any], mark=None):
         mark = mark or no_mark
-        b = to_device(batch, dev)
-        state.model.train()
-        _, _, ld = refine(b, b["init_rot"], b["init_trans"], mark)
-        return descend(state, ld, decay_fn, mark)
+        with span("train_step", root=True):
+            b = to_device(batch, dev)
+            state.model.train()
+            _, _, ld = refine(b, b["init_rot"], b["init_trans"], mark)
+            return descend(state, ld, decay_fn, mark)
 
     return train_step
 
@@ -213,18 +227,20 @@ def make_train_step(cfg: Config, model: DeepIM, n_iter: int | None = None,
 def make_eval_step(cfg: Config, model: DeepIM, device=None,
                    raster_kw: dict | None = None
                    ) -> Callable[[dict[str, Any]], dict[str, Tensor]]:
-    """eval_step(batch) -> {"rot" (B,3,3), "trans" (B,3)}: n_iter_test refine
-    iterations from batch["init_rot"], batch["init_trans"] on `device`
-    (CUDA by default)."""
+    """eval_step(batch, mark=None) -> {"rot" (B,3,3), "trans" (B,3)}:
+    n_iter_test refine iterations from batch["init_rot"],
+    batch["init_trans"] on `device` (CUDA by default); mark as
+    make_refine_fn's. One request is one root span (utils/profiling.py)."""
     dev = resolve_device(device)
     refine = make_refine_fn(cfg, model, cfg.deepim.n_iter_test,
                             raster_kw=raster_kw)
 
-    def eval_step(batch: dict[str, Any]) -> dict[str, Tensor]:
-        b = to_device(batch, dev)
-        with torch.inference_mode():
-            rot, trans = refine(b, b["init_rot"], b["init_trans"])
-        return {"rot": rot, "trans": trans}
+    def eval_step(batch: dict[str, Any], mark=no_mark) -> dict[str, Tensor]:
+        with span("eval_step", root=True):
+            b = to_device(batch, dev)
+            with torch.inference_mode():
+                rot, trans = refine(b, b["init_rot"], b["init_trans"], mark)
+            return {"rot": rot, "trans": trans}
 
     return eval_step
 

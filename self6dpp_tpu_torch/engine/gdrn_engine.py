@@ -13,6 +13,7 @@ in place.
 from __future__ import annotations
 
 import math
+import time
 from collections.abc import Callable
 
 import torch
@@ -24,6 +25,7 @@ from ..convert import param_kinds
 from ..losses.gdrn_loss import gdrn_loss
 from ..models.gdrn import GDRN
 from ..parallel.dist import average_gradients
+from ..utils.profiling import span
 from .optim import build_optimizer
 from .train_state import TrainState, create_train_state, ema_decay_schedule
 
@@ -46,13 +48,24 @@ def no_mark(name: str) -> None:
     pass
 
 
+class Mark(tuple):
+    """(name, event), as event_marker appends it, with host_ns: the host's
+    time.perf_counter_ns() just after the event was recorded."""
+
+    def __new__(cls, name: str, event, host_ns: int):
+        m = super().__new__(cls, (name, event))
+        m.host_ns = host_ns
+        return m
+
+
 def event_marker(marks: list) -> Callable[[str], None]:
-    """mark(name) appends (name, a recorded CUDA event) to `marks`: the
-    phases of a step on the card's clock, read after a synchronize."""
+    """mark(name) appends (name, a recorded CUDA event) to `marks`, a Mark
+    that also holds the host's time of the mark: the phases of a step on
+    the card's clock, read after a synchronize, and on the host's."""
     def mark(name: str) -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks.append((name, ev))
+        marks.append(Mark(name, ev, time.perf_counter_ns()))
     return mark
 
 
@@ -147,19 +160,21 @@ def descend(state: TrainState, ld: dict[str, Tensor], decay_fn, mark=no_mark,
     gathered parameters dropped. Returns (state, metrics as detached 0-d
     tensors: this rank's terms)."""
     total = sum(ld[k] for k in sorted(ld))
-    state.opt.zero_grad(set_to_none=True)
-    total.backward()
-    if extra_grads is not None:
-        add_gradients(state.model.parameters(), extra_grads)
-    if state.fsdp is not None:
-        state.fsdp.reduce_grads()
-    average_gradients(state.params())
+    with span("backward"):
+        state.opt.zero_grad(set_to_none=True)
+        total.backward()
+        if extra_grads is not None:
+            add_gradients(state.model.parameters(), extra_grads)
+        if state.fsdp is not None:
+            state.fsdp.reduce_grads()
+        average_gradients(state.params())
     mark("backward")
-    state.opt.step()
-    state.step += 1
-    state.update_ema(decay_fn)
-    if state.fsdp is not None:
-        state.fsdp.release()
+    with span("optimizer_ema"):
+        state.opt.step()
+        state.step += 1
+        state.update_ema(decay_fn)
+        if state.fsdp is not None:
+            state.fsdp.release()
     mark("optimizer_ema")
     metrics = {k: v.detach() for k, v in ld.items()}
     metrics["total_loss"] = total.detach()
@@ -196,18 +211,23 @@ def make_train_step(cfg: Config, model: GDRN):
 
     def train_step(state: TrainState, batch: dict[str, Tensor], mark=None):
         mark = mark or no_mark
-        net = state.model.train()
-        dev = next(net.parameters()).device
-        with autocast(cfg, dev):
-            out = net(*model_inputs(batch),
-                      generator=dropout_generator(cfg, state.step, dev))
-        out = {k: v.float() for k, v in out.items()}
-        mark("forward")
-        ld = gdrn_loss(cfg.model.loss, cfg.model.pnp_net, out, batch,
-                       num_regions=gh.num_regions, xyz_bin=gh.xyz_bin,
-                       mtl_log_vars=net.mtl if cfg.model.use_mtl else None)
-        mark("loss")
-        return descend(state, ld, decay_fn, mark)
+        with span("train_step", root=True):
+            net = state.model.train()
+            dev = next(net.parameters()).device
+            with span("forward"):
+                with autocast(cfg, dev):
+                    out = net(*model_inputs(batch),
+                              generator=dropout_generator(cfg, state.step,
+                                                          dev))
+                out = {k: v.float() for k, v in out.items()}
+            mark("forward")
+            with span("loss"):
+                ld = gdrn_loss(cfg.model.loss, cfg.model.pnp_net, out, batch,
+                               num_regions=gh.num_regions, xyz_bin=gh.xyz_bin,
+                               mtl_log_vars=net.mtl if cfg.model.use_mtl
+                               else None)
+            mark("loss")
+            return descend(state, ld, decay_fn, mark)
 
     return train_step
 

@@ -68,6 +68,7 @@ from ..ops.rasterizer import (compute_vertex_normals, rasterize_batch,
                               sample_texture)
 from ..ops.warp import affine_warp, sample_pose_variated_affines
 from ..ops.zoom import zoom_K
+from ..utils.profiling import span
 from .deepim_engine import make_refine_fn, to_device
 from .gdrn_engine import (autocast, build_gdrn, descend, dropout_generator,
                           init_state, model_inputs, no_mark)
@@ -137,15 +138,18 @@ def student_teacher(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     float32."""
     dev = next(state.model.parameters()).device
     net = state.model.eval()
-    with autocast(cfg, dev):
-        out = net(*model_inputs(student_batch or batch),
-                  forward_mode=forward_mode,
-                  generator=dropout_generator(cfg, state.step, dev))
-    out = {k: v.float() for k, v in out.items()}
+    with span("student_fwd"):
+        with autocast(cfg, dev):
+            out = net(*model_inputs(student_batch or batch),
+                      forward_mode=forward_mode,
+                      generator=dropout_generator(cfg, state.step, dev))
+        out = {k: v.float() for k, v in out.items()}
     mark("student_fwd")
-    with autocast(cfg, dev), torch.no_grad():
-        tout = state.teacher(*model_inputs(batch), forward_mode=forward_mode)
-    tout = {k: v.float() for k, v in tout.items()}
+    with span("teacher_fwd"):
+        with autocast(cfg, dev), torch.no_grad():
+            tout = state.teacher(*model_inputs(batch),
+                                 forward_mode=forward_mode)
+        tout = {k: v.float() for k, v in tout.items()}
     mark("teacher_fwd")
     return out, tout
 
@@ -213,7 +217,9 @@ def vf_norm_labels(cfg: Config, batch: dict[str, Tensor],
                         o)
         labels["vf"] = torch.cat([vf, vf], dim=-1)
     if ss.norm_lw > 0 and "norm" in out and "mesh_normals" in batch:
-        labels["norm"] = render_pseudo_normals(cfg, batch, rot, trans, impl)
+        with span("normal_render"):
+            labels["norm"] = render_pseudo_normals(cfg, batch, rot, trans,
+                                                   impl)
     return labels
 
 
@@ -275,7 +281,7 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     if refine is not None:
         # no_grad, not inference_mode: the refined pose feeds the labels of
         # a step that takes gradients
-        with torch.no_grad():
+        with span("refine"), torch.no_grad():
             p_rot, p_trans = refine(refiner_batch(batch, pseudo_vis), p_rot,
                                     p_trans)
         mark("refine")
@@ -288,15 +294,18 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     if "norm" in pseudo:
         mark("normal_render")
 
-    ren = render_student_pose(cfg, batch, out["rot"], out["trans"],
-                              impl=impl)
+    with span("render_fwd"):
+        ren = render_student_pose(cfg, batch, out["rot"], out["trans"],
+                                  impl=impl)
     mark("render_fwd")
-    ld = compute_self_loss_pose(ss_loss, ren, out, pseudo, batch,
-                                lpips_fn=lpips, lab_linear=lab_linear,
-                                impl=impl)
+    with span("losses"):
+        ld = compute_self_loss_pose(ss_loss, ren, out, pseudo, batch,
+                                    lpips_fn=lpips, lab_linear=lab_linear,
+                                    impl=impl)
     mark("losses")
     if ss.repj_refine:
-        ld.update(repj_terms(cfg, batch, out, impl))
+        with span("repj"):
+            ld.update(repj_terms(cfg, batch, out, impl))
         mark("repj")
     return ld, ren, pseudo
 
@@ -341,9 +350,10 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
     def train_step(state: TrainState, batch: dict[str, Tensor], mark=None,
                    lab_linear=None, extra_grads=None):
         mark = mark or no_mark
-        ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
-                                  split_lab, lab_linear, refine)
-        return descend(state, ld, decay_fn, mark, extra_grads)
+        with span("train_step", root=True):
+            ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
+                                      split_lab, lab_linear, refine)
+            return descend(state, ld, decay_fn, mark, extra_grads)
 
     return train_step
 
@@ -438,17 +448,19 @@ def build_self_train_step(cfg: Config, model: GDRN,
         fwd, pix = make_lab_fwd_fn(cfg, model, impl), make_lab_pixel_fn(cfg)
 
         def pixel_split_step(state, batch, mark=None):
-            ren, vis = fwd(state, batch)
-            return step(state, batch, mark,
-                        lab_linear=pix(ren, batch["roi_img"], vis))
+            with span("train_step", root=True):
+                ren, vis = fwd(state, batch)
+                return step(state, batch, mark,
+                            lab_linear=pix(ren, batch["roi_img"], vis))
 
         return pixel_split_step
     if mode == "split_grad":
         lab_grad = make_lab_grad_fn(cfg, model, impl)
 
         def split_grad_step(state, batch, mark=None):
-            val, grads = lab_grad(state, batch)
-            state, metrics = step(state, batch, mark, extra_grads=grads)
+            with span("train_step", root=True):
+                val, grads = lab_grad(state, batch)
+                state, metrics = step(state, batch, mark, extra_grads=grads)
             metrics["loss_color_ab_obj"] = val
             metrics["total_loss"] = metrics["total_loss"] + val
             return state, metrics

@@ -30,6 +30,7 @@ from ..ops.geometry import backproject_depth
 from ..ops.lab_cuda import lab_value_grad_scaled, lab_value_grad_scaled_plain
 from ..ops.ssim import ms_ssim
 from ..parallel.dist import batch_denom, global_max, rank_share
+from ..utils.profiling import span
 from .mask_losses import weighted_ex_loss_probs
 from .pm_loss import pm_loss
 
@@ -178,17 +179,19 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
     pseudo_vis = pseudo["vis_mask"]
 
     if cfg.mask_lw > 0:
-        w = compute_mask_edge_weights(pseudo_vis) if cfg.mask_edge_reweight else None
-        if cfg.mask_loss_type == "RW_BCE":
-            lm = weighted_ex_loss_probs(ren["prob"].clamp(1e-7, 1 - 1e-7),
-                                        pseudo_vis, weight=w)
-        elif cfg.mask_loss_type == "dice":
-            p, t = ren["prob"].flatten(1), pseudo_vis.flatten(1)
-            score = 2.0 * (p * t).sum(1) / (p.sum(1) + t.sum(1) + 0.002)
-            lm = (1.0 - score).mean()
-        else:
-            lm = (ren["prob"] - pseudo_vis).abs().mean()
-        loss["loss_mask_self"] = cfg.mask_lw * lm
+        with span("losses.mask"):
+            w = compute_mask_edge_weights(pseudo_vis) \
+                if cfg.mask_edge_reweight else None
+            if cfg.mask_loss_type == "RW_BCE":
+                lm = weighted_ex_loss_probs(
+                    ren["prob"].clamp(1e-7, 1 - 1e-7), pseudo_vis, weight=w)
+            elif cfg.mask_loss_type == "dice":
+                p, t = ren["prob"].flatten(1), pseudo_vis.flatten(1)
+                score = 2.0 * (p * t).sum(1) / (p.sum(1) + t.sum(1) + 0.002)
+                lm = (1.0 - score).mean()
+            else:
+                lm = (ren["prob"] - pseudo_vis).abs().mean()
+            loss["loss_mask_self"] = cfg.mask_lw * lm
 
     # one masked pair for every image loss; LAB's gradient is injected into
     # ren_m before LPIPS and MS-SSIM read it, so the render's cotangent
@@ -205,58 +208,69 @@ def compute_self_loss_pose(cfg: SelfSupConfig, ren: dict[str, Tensor],
         # B3 returns the gradient unnormalised and the 0-d scale lab_lw /
         # (max(sum(mask), 1) * n_ch): InjectGrad adds g_raw * scale to the
         # cotangent in one pass (the JAX package injects lab_lw * g)
-        fn = (lab_value_grad_scaled if impl == "kernel"
-              else lab_value_grad_scaled_plain)
-        lab_val, g_raw, scale = fn(ren_m.detach(), img_m.detach(),
-                                   pseudo_vis.detach(), cfg.lab_no_l,
-                                   cfg.lab_lw)
-        share = rank_share(pseudo_vis.sum())
-        if share is not None:
-            # B3 normalises by this rank's mask; the step's term is the
-            # rank's share of the global batch's (parallel/dist.py)
-            lab_val, scale = lab_val * share, scale * share
-        ren_m = InjectGrad.apply(ren_m, g_raw, scale)
-        loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
+        with span("losses.lab"):
+            fn = (lab_value_grad_scaled if impl == "kernel"
+                  else lab_value_grad_scaled_plain)
+            lab_val, g_raw, scale = fn(ren_m.detach(), img_m.detach(),
+                                       pseudo_vis.detach(), cfg.lab_no_l,
+                                       cfg.lab_lw)
+            share = rank_share(pseudo_vis.sum())
+            if share is not None:
+                # B3 normalises by this rank's mask; the step's term is the
+                # rank's share of the global batch's (parallel/dist.py)
+                lab_val, scale = lab_val * share, scale * share
+            ren_m = InjectGrad.apply(ren_m, g_raw, scale)
+            loss["loss_color_ab_obj"] = cfg.lab_lw * lab_val
 
     if cfg.perceptual_lw > 0 and lpips_fn is not None:
-        loss["loss_percep_obj"] = cfg.perceptual_lw * lpips_fn(ren_m, img_m).mean()
+        with span("losses.lpips"):
+            loss["loss_percep_obj"] = cfg.perceptual_lw * lpips_fn(
+                ren_m, img_m).mean()
     if cfg.ms_ssim_lw > 0:
-        loss["loss_ms_ssim"] = cfg.ms_ssim_lw * (1.0 - ms_ssim(img_m, ren_m))
+        with span("losses.ms_ssim"):
+            loss["loss_ms_ssim"] = cfg.ms_ssim_lw * (1.0 - ms_ssim(img_m,
+                                                                  ren_m))
     if cfg.lab_lw > 0 and cfg.lab_impl != "pallas":
         # surrogate: the same value and gradient through sum(g * ren_m);
         # split_grad and pixel_split reach here only unsplit (direct)
-        fn = lab_loss_surrogate if cfg.lab_impl == "surrogate" else lab_loss
-        loss["loss_color_ab_obj"] = cfg.lab_lw * fn(
-            ren_m, img_m, mask=pseudo_vis, no_l=cfg.lab_no_l)
+        with span("losses.lab"):
+            fn = lab_loss_surrogate if cfg.lab_impl == "surrogate" \
+                else lab_loss
+            loss["loss_color_ab_obj"] = cfg.lab_lw * fn(
+                ren_m, img_m, mask=pseudo_vis, no_l=cfg.lab_no_l)
 
     if cfg.depth_chamfer_lw > 0 and "roi_depth" in batch:
-        Kz = batch["roi_zoom_K"]
-        ren_xyz = backproject_depth(ren["depth"], Kz)          # (B,S,S,3)
-        obs_xyz = backproject_depth(batch["roi_depth"] * pseudo_vis, Kz)
-        B, S = ren_xyz.shape[:2]
-        stride = max(1, int((S * S / _MAX_DEPTH_POINTS) ** 0.5))
-        rp = ren_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
-        op = obs_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
-        rw = (rp[..., 2] > 1e-3).to(rp.dtype)
-        ow = (op[..., 2] > 1e-3).to(op.dtype)
-        loss["loss_chamfer"] = cfg.depth_chamfer_lw * chamfer_loss(
-            rp, op, rw, ow, dist_thr=cfg.chamfer_dist_thr,
-            center_lw=cfg.chamfer_center_lw)
+        with span("losses.chamfer"):
+            Kz = batch["roi_zoom_K"]
+            ren_xyz = backproject_depth(ren["depth"], Kz)      # (B,S,S,3)
+            obs_xyz = backproject_depth(batch["roi_depth"] * pseudo_vis, Kz)
+            B, S = ren_xyz.shape[:2]
+            stride = max(1, int((S * S / _MAX_DEPTH_POINTS) ** 0.5))
+            rp = ren_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
+            op = obs_xyz[:, ::stride, ::stride].reshape(B, -1, 3)
+            rw = (rp[..., 2] > 1e-3).to(rp.dtype)
+            ow = (op[..., 2] > 1e-3).to(op.dtype)
+            loss["loss_chamfer"] = cfg.depth_chamfer_lw * chamfer_loss(
+                rp, op, rw, ow, dist_thr=cfg.chamfer_dist_thr,
+                center_lw=cfg.chamfer_center_lw)
 
-    _init_pred_terms(loss, pred, pseudo)
+    with span("losses.init_pred"):
+        _init_pred_terms(loss, pred, pseudo)
 
     if cfg.pseudo_pm_lw > 0:
-        loss.update(pm_loss(
-            pred["rot"], pseudo["rot"], batch["gt_points"],
-            pred_transes=pred["trans"], gt_transes=pseudo["trans"],
-            extents=batch["roi_extent"], sym_rots=batch.get("sym_rots"),
-            sym_valid=batch.get("sym_valid"), loss_weight=cfg.pseudo_pm_lw,
-            symmetric=True, norm_by_extent=True, r_only=False,
-            disentangle_z=True))
+        with span("losses.pm"):
+            loss.update(pm_loss(
+                pred["rot"], pseudo["rot"], batch["gt_points"],
+                pred_transes=pred["trans"], gt_transes=pseudo["trans"],
+                extents=batch["roi_extent"], sym_rots=batch.get("sym_rots"),
+                sym_valid=batch.get("sym_valid"),
+                loss_weight=cfg.pseudo_pm_lw, symmetric=True,
+                norm_by_extent=True, r_only=False, disentangle_z=True))
     if cfg.pseudo_trans_lw > 0:
-        loss["loss_trans_xy"] = cfg.pseudo_trans_lw * (
-            pred["trans"][:, :2] - pseudo["trans"][:, :2]).abs().mean()
-        loss["loss_trans_z"] = cfg.pseudo_trans_lw * (
-            pred["trans"][:, 2] - pseudo["trans"][:, 2]).abs().mean()
+        with span("losses.trans"):
+            loss["loss_trans_xy"] = cfg.pseudo_trans_lw * (
+                pred["trans"][:, :2] - pseudo["trans"][:, :2]).abs().mean()
+            loss["loss_trans_z"] = cfg.pseudo_trans_lw * (
+                pred["trans"][:, 2] - pseudo["trans"][:, 2]).abs().mean()
     _vf_norm_terms(cfg, loss, pred, pseudo)
     return loss

@@ -21,6 +21,7 @@ import torch
 from torch import Tensor
 
 from .. import resolve_device
+from ..utils.profiling import span
 from .zoom import _bilinear_sample
 
 
@@ -133,12 +134,15 @@ def raster_inputs(verts, faces, attrs, K, R, t, height: int, width: int,
                   cull_backfaces: bool = True) -> tuple[Tensor, Tensor]:
     """Everything before the fine stage: face_data, binning, face table.
     Returns (ftab (B,F,11+3D) f32, cand (B*T, K) int32)."""
-    v2d_f, zmean_f, zinv_f, attr_f, valid_f = face_data(
-        verts, faces, attrs, K, R, t, cull_backfaces)
-    cand = _bin_faces(v2d_f, valid_f, height, width, tile_px, faces_per_tile,
-                      zmean_f)
-    ftab = _pack_faces(v2d_f, zmean_f, valid_f, zinv_f, attr_f)
-    return ftab, cand.reshape(-1, cand.shape[-1]).contiguous()
+    with span("render.project"):
+        v2d_f, zmean_f, zinv_f, attr_f, valid_f = face_data(
+            verts, faces, attrs, K, R, t, cull_backfaces)
+    with span("render.bin"):
+        cand = _bin_faces(v2d_f, valid_f, height, width, tile_px,
+                          faces_per_tile, zmean_f)
+    with span("render.pack"):
+        ftab = _pack_faces(v2d_f, zmean_f, valid_f, zinv_f, attr_f)
+        return ftab, cand.reshape(-1, cand.shape[-1]).contiguous()
 
 
 def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
@@ -171,10 +175,11 @@ def rasterize_batch(verts, faces, attrs, K, R, t, height: int = 64,
         cull_backfaces)
     args = (ftab, cand, height, width, tile_px, sigma_px, with_prob,
             zbuf_mode == "persp")
-    if torch.is_grad_enabled() and ftab.requires_grad:
-        return RasterOut(*FineRaster.apply(*args, impl))
-    fine = fine_raster if impl == "kernel" else fine_raster_plain
-    return fine(*args)
+    with span("render.fine"):
+        if torch.is_grad_enabled() and ftab.requires_grad:
+            return RasterOut(*FineRaster.apply(*args, impl))
+        fine = fine_raster if impl == "kernel" else fine_raster_plain
+        return fine(*args)
 
 
 def rasterize_single(verts, faces, attrs, K, R, t, **kw) -> RasterOut:

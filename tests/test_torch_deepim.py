@@ -32,6 +32,7 @@ from self6dpp_tpu_torch.data.meshes import make_cube
 from self6dpp_tpu_torch.engine import deepim_engine as tde
 from self6dpp_tpu_torch.models.backbones.flownet import FlowNetS
 from self6dpp_tpu_torch.models.deepim import DeepIM
+from self6dpp_tpu_torch.utils import profiling
 
 MICRO = (8, 12, 16, 16, 16, 24)
 _FLOWNET = os.path.join(os.path.dirname(__file__), "fixtures",
@@ -182,7 +183,16 @@ def test_refine_matches_jax(micro_jax, monkeypatch, raster):
     jrefine = jde.make_refine_fn(jc, jm, n_iter=2, raster_kw=rkw)
     jr, jt = jrefine({"params": params}, jb, jb["init_rot"], jb["init_trans"])
     step = tde.make_eval_step(tc, tm, device="cpu")
-    out = step(b)
+    names = []
+    with profiling.recording() as rec:
+        out = step(b, names.append)
+    # the request's phases reach the mark hook; its spans nest under one
+    # root
+    assert names == ["render", "network_fwd"] * 2
+    assert [s.name for s in rec.spans if s.parent < 0] == ["eval_step"]
+    assert {s.name for s in rec.spans} == {
+        "eval_step", "render", "network_fwd", "refine.boxes", "refine.crop",
+        "render.project", "render.bin", "render.pack", "render.fine"}
     np.testing.assert_allclose(out["rot"].numpy(), np.asarray(jr), atol=1e-4)
     np.testing.assert_allclose(out["trans"].numpy(), np.asarray(jt), atol=1e-4)
     assert np.abs(np.asarray(jt) - b["init_trans"]).max() > 1e-3

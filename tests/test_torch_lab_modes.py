@@ -22,6 +22,7 @@ from self6dpp_tpu_torch import config as tc
 from self6dpp_tpu_torch.engine import self_engine as se
 from self6dpp_tpu_torch.losses.self_loss import check_supported
 from self6dpp_tpu_torch.ops import color as tcol
+from self6dpp_tpu_torch.utils import profiling
 
 TOL = 1e-6
 
@@ -109,9 +110,10 @@ def one_step(built, mode):
     cfg = dataclasses.replace(cfg, self_sup=dataclasses.replace(
         cfg.self_sup, lab_impl=mode))
     step = se.build_self_train_step(cfg, model, lpips, impl="plain")
-    _, metrics = step(state, batch)
+    with profiling.recording() as rec:
+        _, metrics = step(state, batch)
     return ([p.detach().clone() for p in model.parameters()],
-            {k: float(v) for k, v in metrics.items()})
+            {k: float(v) for k, v in metrics.items()}, rec.spans)
 
 
 @pytest.fixture(scope="module")
@@ -122,8 +124,14 @@ def direct(built):
 @pytest.mark.parametrize("mode", ["surrogate", "split_grad", "pixel_split",
                                   "pallas"])
 def test_stage2_step_in_each_mode_equals_direct(mode, built, direct):
-    params, metrics = one_step(built, mode)
-    ref_params, ref_metrics = direct
+    params, metrics, spans = one_step(built, mode)
+    ref_params, ref_metrics, _ = direct
+    # every mode's step, side steps included, is one root span over the
+    # pose step's phases
+    assert [s.name for s in spans if s.parent < 0] == ["train_step"]
+    assert {s.name for s in spans if s.parent == 0} >= {
+        "student_fwd", "teacher_fwd", "render_fwd", "losses", "backward",
+        "optimizer_ema"}
     assert ref_metrics["loss_color_ab_obj"] > 0
     assert sorted(metrics) == sorted(ref_metrics)
     for k, v in ref_metrics.items():
