@@ -64,8 +64,9 @@ exits non-zero):
      well past the tolerance, and a step without the losses that read the
      render ends elsewhere;
   7. time bf16 stage-II steps, with one launch each of B1, B2 and B3 per
-     step, and hold their first losses against the float32 step's; time
-     the partial step (LPIPS, MS-SSIM, chamfer at weight 0) beside it;
+     step (and 4 of the upsample's forward, 2 of its backward), and hold
+     their first losses against the float32 step's; time the partial step
+     (LPIPS, MS-SSIM, chamfer at weight 0) beside it;
   8. hold the probe kernels P1 and P2 bitwise against their plain versions
      on the step's masked render and image and on a seeded input with ties,
      NaN and -0.0, and time both;
@@ -200,7 +201,12 @@ exits non-zero):
      trace names B1, B2 and B3; its size, the step inside and outside;
  34. the sharded (fsdp) code path at the grid (1, 1): three stage-I steps
      at gdrn_flagship through shard_state(force=True) bit for bit with
-     the unsharded steps (the multi-rank path is the CPU test's).
+     the unsharded steps (the multi-rank path is the CPU test's);
+ 35. the geo head's align-corners 2x upsample (csrc/upsample2x.cu): its
+     forward bitwise against the plain function and its gather-form
+     backward against the plain twin and float64, at the stage-II step's
+     two shapes at 128 ROIs and at odd and banded sizes; both timed beside
+     the plain path and F.interpolate, with their byte bounds.
 Every face table and candidate list rasterized outside the timed phases is
 held to the fine-raster kernels' precondition (depth-sorted candidates).
 Prints a `record` line with every measurement, a `kernels` line, a `path`
@@ -306,6 +312,9 @@ S2_TIMED_STEPS = 20               # bf16 steps timed after one warm-up step
 S2_PARTIAL_STEPS = 5              # the partial step's, for its median
 # kernel launches per step
 S2_LAUNCHES = {"fine_raster_fwd": 1, "fine_raster_bwd": 1, "lab_value_grad": 1}
+# the geo head's two bilinear up-blocks: student and teacher forwards, the
+# student's backward
+S2_UPSAMPLE_LAUNCHES = {"upsample2x": 4, "upsample2x_bwd": 2}
 S2_LR = 1e-3                      # phase 6: no warm-up and a visible lr
 TOL_B2 = 1e-4                     # d ftab, of its largest magnitude
 TOL_B3_VALUE = 1e-5               # LAB value, relative
@@ -1323,9 +1332,18 @@ def kernel_launches():
 def zero_kernel_launches():
     from self6dpp_tpu_torch.ops import lab_cuda as LC
     from self6dpp_tpu_torch.ops import raster_cuda as RC
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
     RC.fine_raster.launches = 0
     RC.fine_raster_bwd.launches = 0
     LC.lab_value_grad.launches = 0
+    UC.upsample2x.launches = 0
+    UC.upsample2x_bwd.launches = 0
+
+
+def upsample_launches():
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    return {"upsample2x": UC.upsample2x.launches,
+            "upsample2x_bwd": UC.upsample2x_bwd.launches}
 
 
 def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
@@ -1357,6 +1375,10 @@ def time_stage2(cfg, device, batch_size, ref32, steps=S2_TIMED_STEPS,
     for name, k in launches.items():
         require(k == S2_LAUNCHES[name] * steps, "launches per step", name, k,
                 steps)
+    for name, k in upsample_launches().items():
+        require(k == S2_UPSAMPLE_LAUNCHES[name] * steps,
+                "upsample launches per step", name, k, steps)
+        launches[name] = k
     for m in metrics:
         require(all(torch.isfinite(v).item() for v in m.values()),
                 "non-finite loss", m)
@@ -4401,6 +4423,140 @@ def run_fsdp_one_card(device):
             "batch": FSDP_BATCH}
 
 
+# ---- phase 35: the geo head's align-corners 2x upsample ----
+
+# (N, C, h, w): the stage-II step's two bilinear up-blocks at 128 ROIs and
+# feat_dim 256 (timed), then odd sizes (scalar stores) and a plane cut into
+# bands (checked only)
+UPSAMPLE_TIMED = ((128, 256, 16, 16), (128, 256, 32, 32))
+UPSAMPLE_CHECKED = ((2, 3, 5, 7), (3, 4, 16, 32), (2, 3, 40, 72))
+UPSAMPLE_BF16_REL = 2.0 ** -8     # backward: one bf16 rounding of the f64 sums
+UPSAMPLE_SUM_REL = 2.0 ** -16     # plus float32's sums, of sum |terms|
+OPS_UP_FWD = 9                    # per output: 6 products, 3 sums
+OPS_UP_BWD = 6                    # per output: 3 products, 3 sums
+
+
+def check_upsample(shape, dtype, device, seed=SEED):
+    """The kernels at one shape and dtype against the plain versions on the
+    card: the forward bit for bit (also through the dispatcher), the
+    backward equal to the plain twin and within one rounding of the same
+    sums in float64 (the tolerance of tests/test_torch_upsample.py), and
+    its largest gap to autograd of the plain forward."""
+    from self6dpp_tpu_torch.models import layers as L
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    n, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    g = torch.randn((n, c, 2 * h, 2 * w), generator=gen,
+                    device=device).to(dtype)
+    tab = L.upsample_tables(h, w, dtype, device)
+    y = UC.upsample2x(x, tab)
+    gin = UC.upsample2x_bwd(g, tab)
+    xr = x.clone().requires_grad_(True)
+    yp = L.upsample2x_align_corners_plain(xr)
+    yp.backward(g, retain_graph=True)   # kept for phase 35's timing
+    torch.cuda.synchronize()
+    ref = L.upsample2x_align_corners_bwd_plain(g.double(), tab)
+    mag = L.upsample2x_align_corners_bwd_plain(g.double().abs(), tab)
+    rel = UPSAMPLE_BF16_REL if dtype == torch.bfloat16 else 2.0 ** -24
+    err = (gin.double() - ref).abs()
+    v = {"fwd_same_bits": same_bits(y.float(), yp.detach().float()),
+         "dispatcher_same_bits": bool(torch.equal(
+             L.upsample2x_align_corners(x), y)),
+         "bwd_equals_plain_twin": bool(torch.equal(
+             gin, L.upsample2x_align_corners_bwd_plain(g, tab))),
+         "bwd_within_rounding": bool((err <= rel * ref.abs()
+                                      + UPSAMPLE_SUM_REL * mag).all()),
+         "bwd_max_abs_err_vs_f64": float(err.max()),
+         "bwd_max_rel_err_vs_f64": float((err / ref.abs().clamp_min(
+             1e-30)).max()),
+         "bwd_max_abs_diff_vs_plain_autograd": float(
+             (gin.double() - xr.grad.double()).abs().max()),
+         "plain_autograd_max_abs_err_vs_f64": float(
+             (xr.grad.double() - ref).abs().max())}
+    require(v["fwd_same_bits"] and v["dispatcher_same_bits"],
+            "upsample forward vs plain, bit for bit", shape, dtype, v)
+    require(v["bwd_equals_plain_twin"] and v["bwd_within_rounding"],
+            "upsample backward vs its twin and float64", shape, dtype, v)
+    return v, (x, g, xr, yp, tab)
+
+
+def check_upsample_kernels(device):
+    """Phase 35: check_upsample at UPSAMPLE_TIMED and UPSAMPLE_CHECKED in
+    bf16 and float32; at UPSAMPLE_TIMED each kernel timed (cuda_ms,
+    graph_ms) beside the plain path (the forward; autograd's backward of
+    it) and F.interpolate(..., align_corners=True) (library_ms: the port
+    never calls it), with its byte bound (one read, one write)."""
+    import torch.nn.functional as F
+    from self6dpp_tpu_torch.kernels import build
+    from self6dpp_tpu_torch.models import layers as L
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    out = {"resources": build.resources("upsample2x")}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for shape in UPSAMPLE_CHECKED:
+            v, _ = check_upsample(shape, dtype, device)
+            out[f"{dname}_{'x'.join(map(str, shape))}"] = v
+        for shape in UPSAMPLE_TIMED:
+            v, (x, g, xr, yp, tab) = check_upsample(shape, dtype, device)
+            n_in, n_out = x.numel(), g.numel()
+            nbytes = (n_in + n_out) * x.element_size()
+            xl = x.clone().requires_grad_(True)
+            yl = F.interpolate(xl, scale_factor=2, mode="bilinear",
+                               align_corners=True)
+
+            def plain_fwd():
+                with torch.no_grad():
+                    L.upsample2x_align_corners_plain(x)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    F.interpolate(x, scale_factor=2, mode="bilinear",
+                                  align_corners=True)
+            rows = {
+                "fwd": {"ms": cuda_ms(lambda: UC.upsample2x(x, tab)),
+                        "graph_ms": graph_ms(lambda: UC.upsample2x(x, tab)),
+                        "plain_ms": cuda_ms(plain_fwd, **PLAIN_TIMING),
+                        "library_ms": cuda_ms(lib_fwd),
+                        "max_abs_err": 0.0 if v["fwd_same_bits"] else None,
+                        **bound(nbytes, OPS_UP_FWD * n_out)},
+                "bwd": {"ms": cuda_ms(lambda: UC.upsample2x_bwd(g, tab)),
+                        "graph_ms": graph_ms(
+                            lambda: UC.upsample2x_bwd(g, tab)),
+                        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                            yp, xr, g, retain_graph=True), **PLAIN_TIMING),
+                        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                            yl, xl, g, retain_graph=True)),
+                        "max_abs_err": v["bwd_max_abs_diff_vs_plain_autograd"],
+                        **bound(nbytes, OPS_UP_BWD * n_out)}}
+            for r in rows.values():
+                r["graph_over_bound"] = r["graph_ms"] / r["bound_ms"]
+            out[f"{dname}_{'x'.join(map(str, shape))}"] = {**v, **rows}
+            del x, g, xr, yp, xl, yl
+            torch.cuda.empty_cache()
+    return out
+
+
+def upsample_kernel_lines(k35, launches):
+    """The `kernels` entries of the upsample's forward and backward at the
+    stage-II step's shapes, launches from phase 7's steps."""
+    out = []
+    for key, name in (("fwd", "upsample2x"), ("bwd", "upsample2x_bwd")):
+        for dname in ("bfloat16", "float32"):
+            for shape in UPSAMPLE_TIMED:
+                d = k35[f"{dname}_{'x'.join(map(str, shape))}"][key]
+                out.append({
+                    "name": f"{name}[{dname},{shape[2]}x{shape[3]}]",
+                    "route": "cuda",
+                    "source": "self6dpp_tpu_torch/csrc/upsample2x.cu",
+                    "replaces": None, "launches": launches[name],
+                    "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+                    "graph_ms": d["graph_ms"], "plain_ms": d["plain_ms"],
+                    "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                    "library_ms": d["library_ms"]})
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4686,6 +4842,10 @@ def main(record_path: str = "") -> int:
     fsdp34 = run_fsdp_one_card(device)
     print(f"fsdp at (1, 1): {json.dumps(fsdp34)}", flush=True)
     clock["fsdp_phase34_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k35 = check_upsample_kernels(device)
+    print(f"upsample kernels vs plain: {json.dumps(k35)}", flush=True)
+    clock["upsample_phase35_s"] = time.perf_counter() - t0
     clock["total_s"] = time.perf_counter() - t_start
 
     record = {"kernel_detail": kdetail, "serve": sdetail, "fp32_path": pdetail,
@@ -4713,7 +4873,8 @@ def main(record_path: str = "") -> int:
               "variant_stage2_kernels": k28, "variant_stage2": v2_stage2,
               "variant_cli_pnp": v2_cli, "fps": fps30,
               "converter": conv31, "lab_modes": lab32, "trace": trace33,
-              "fsdp_one_card": fsdp34, "clock": clock,
+              "fsdp_one_card": fsdp34, "upsample_kernels": k35,
+              "clock": clock,
               "build_s": build_s, "resources": resources,
               "cand_order_checks": cand_checks["inputs"],
               "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -4750,6 +4911,7 @@ def main(record_path: str = "") -> int:
     kernels += stage2_kernel_rows(k28, v2_stage2["timed"],
                                   "stage2_pvnet_conv_point",
                                   "stage2_pvnet_conv_point")
+    kernels += upsample_kernel_lines(k35, s2_launches)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"path": {"deepim_eval": deepim_path,
                                "stage2_step": stage2_path,

@@ -3,10 +3,15 @@ return NCHW tensors; module names follow the reference torch checkpoints."""
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as Fnn
 from torch import Tensor, nn
+from torch.autograd.function import once_differentiable
 
+from ..ops import upsample_cuda
 from ..parallel.dist import data_size, global_sum
 
 
@@ -127,6 +132,18 @@ class Upsample2x(nn.Module):
 
 
 def upsample2x_align_corners(x: Tensor) -> Tensor:
+    """Bilinear 2x with align_corners=True of NCHW x: on a card the CUDA
+    kernels of csrc/upsample2x.cu through one autograd Function (forward
+    bitwise equal to upsample2x_align_corners_plain there, backward
+    upsample2x_align_corners_bwd_plain's gather form), which raise on a
+    dtype other than bfloat16 or float32 or a layout other than
+    NCHW-contiguous; elsewhere upsample2x_align_corners_plain."""
+    if x.device.type == "cuda":
+        return _Upsample2x.apply(x)
+    return upsample2x_align_corners_plain(x)
+
+
+def upsample2x_align_corners_plain(x: Tensor) -> Tensor:
     """Bilinear 2x with align_corners=True, written as the JAX package's
     _resize_align_corners (two gathers and lerps), so that both round
     alike."""
@@ -142,6 +159,123 @@ def upsample2x_align_corners(x: Tensor) -> Tensor:
     top = x[:, :, y0][:, :, :, x0] * (1 - wx) + x[:, :, y0][:, :, :, x1] * wx
     bot = x[:, :, y1][:, :, :, x0] * (1 - wx) + x[:, :, y1][:, :, :, x1] * wx
     return top * (1 - wy) + bot * wy
+
+
+@dataclasses.dataclass(eq=False)
+class UpsampleAxis:
+    """One axis of the align-corners 2x upsample, n inputs to 2n outputs,
+    from upsample2x_align_corners_plain's torch.linspace code: output o
+    reads input idx[0, o] with weight wt[0, o] (1 - w, rounded to the
+    working dtype) and idx[1, o] with wt[1, o] (w); input i is read by the
+    outputs inv_o[i, :inv_n[i]], ascending, with weights inv_w[i, ...].
+    Indices int32 on the device; weights the working dtype's values in its
+    float32 (float64) accumulation type. The *_host tuples give, for each
+    output, the first and last input it reads (lo, hi) and, for each input,
+    the first and last output that reads it (inv_lo, inv_hi)."""
+    n: int
+    idx: Tensor
+    wt: Tensor
+    inv_o: Tensor
+    inv_w: Tensor
+    inv_n: Tensor
+    lo_host: tuple[int, ...]
+    hi_host: tuple[int, ...]
+    inv_lo_host: tuple[int, ...]
+    inv_hi_host: tuple[int, ...]
+
+
+@dataclasses.dataclass(eq=False)
+class UpsampleTables:
+    y: UpsampleAxis
+    x: UpsampleAxis
+
+
+def _upsample_axis(n: int, dtype: torch.dtype,
+                   device: torch.device) -> UpsampleAxis:
+    s = torch.linspace(0.0, n - 1.0, 2 * n, device=device)
+    i0 = s.floor().long().clamp(0, n - 1)
+    i1 = (i0 + 1).clamp(0, n - 1)
+    w = (s - i0).to(dtype)
+    acc = torch.promote_types(dtype, torch.float32)
+    wt = torch.stack([1 - w, w]).to(acc)
+    lo, hi = tuple(i0.tolist()), tuple(i1.tolist())
+    taps = [[] for _ in range(n)]
+    for o, (a, b, wa, wb) in enumerate(zip(lo, hi, *wt.tolist())):
+        taps[a].append((o, wa))
+        taps[b].append((o, wb))
+    k = max(len(t) for t in taps)
+    pad = [t + [(0, 0.0)] * (k - len(t)) for t in taps]
+    firsts, lasts = [t[0][0] for t in taps], [t[-1][0] for t in taps]
+    if any(a > b for seq in (lo, hi, firsts, lasts)
+           for a, b in zip(seq, seq[1:])):
+        raise RuntimeError(f"upsample tables at n={n} are not monotone")
+    i32 = dict(dtype=torch.int32, device=device)
+    return UpsampleAxis(
+        n, torch.stack([i0, i1]).to(torch.int32), wt,
+        torch.tensor([[o for o, _ in t] for t in pad], **i32),
+        torch.tensor([[v for _, v in t] for t in pad], dtype=acc,
+                     device=device),
+        torch.tensor([len(t) for t in taps], **i32), lo, hi, tuple(firsts),
+        tuple(lasts))
+
+
+def build_upsample_tables(h: int, w: int, dtype: torch.dtype,
+                          device: torch.device) -> UpsampleTables:
+    """The index and weight tables of the (h, w) -> (2h, 2w) upsample in
+    `dtype` on `device` (upsample_tables caches them)."""
+    return UpsampleTables(_upsample_axis(h, dtype, device),
+                          _upsample_axis(w, dtype, device))
+
+
+@functools.cache
+def upsample_tables(h: int, w: int, dtype: torch.dtype,
+                    device: torch.device) -> UpsampleTables:
+    """build_upsample_tables, once per (h, w, dtype, device)."""
+    return build_upsample_tables(h, w, dtype, device)
+
+
+def _gather_taps(g: Tensor, ax: UpsampleAxis, dim: int) -> Tensor:
+    """sum_j g[..., inv_o[i, j], ...] * inv_w[i, j] over j < inv_n[i] along
+    `dim`, in the order of j."""
+    shape = [1] * g.ndim
+    shape[dim] = ax.n
+    out = None
+    for j in range(ax.inv_o.shape[1]):
+        term = (g.index_select(dim, ax.inv_o[:, j])
+                * ax.inv_w[:, j].to(g.dtype).view(shape))
+        term = torch.where((ax.inv_n > j).view(shape), term, 0.0)
+        out = term if out is None else out + term
+    return out
+
+
+def upsample2x_align_corners_bwd_plain(
+        g: Tensor, tables: UpsampleTables | None = None) -> Tensor:
+    """The gradient of upsample2x_align_corners with respect to its (N, C,
+    h, w) input, from the output's g (N, C, 2h, 2w), in gather form: each
+    input sums the outputs that read it, times the rounded weights the
+    forward applied (tables, by default upsample_tables(h, w, g.dtype,
+    g.device)), along W, then along H, in float32 (float64 for float64 g),
+    rounded to g's dtype once. The arithmetic of csrc/upsample2x.cu's
+    backward."""
+    tab = tables if tables is not None else upsample_tables(
+        g.shape[2] // 2, g.shape[3] // 2, g.dtype, g.device)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    gx = _gather_taps(g.to(acc), tab.x, 3)
+    return _gather_taps(gx, tab.y, 2).to(g.dtype)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """upsample2x_align_corners on a card: both directions are kernels."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor) -> Tensor:
+        ctx.tab = upsample_tables(x.shape[2], x.shape[3], x.dtype, x.device)
+        return upsample_cuda.upsample2x(x, ctx.tab)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: Tensor) -> Tensor:
+        return upsample_cuda.upsample2x_bwd(g.contiguous(), ctx.tab)
 
 
 def ConvTranspose2x(cin: int, cout: int, kernel_size: int = 3) -> nn.Module:

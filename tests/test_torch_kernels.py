@@ -634,6 +634,94 @@ def test_sign_g_rejects_bad_inputs(cuda_device):
         SC.sign_g_split((x, x, x[:1]), (x, x, x))
 
 
+# the geo head's align-corners 2x upsample (csrc/upsample2x.cu): the stage-II
+# step's two shapes at 128 ROIs and feat_dim 256, odd sizes (scalar stores),
+# and planes wide enough to be cut into bands
+UPSAMPLE_SHAPES = [(128, 256, 16, 16), (128, 256, 32, 32), (1, 2, 1, 1),
+                   (2, 3, 5, 7), (2, 3, 5, 6), (3, 4, 16, 32), (2, 3, 40, 72)]
+UP_BF16_REL = 2.0 ** -8           # tests/test_torch_upsample.py's tolerance
+UP_F32_SUM_REL = 2.0 ** -16
+
+
+def _upsample_pair(dev, shape, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    g = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device=dev).to(dtype)
+    return x, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_upsample2x_forward_is_the_plain_bitwise(cuda_device, shape, dtype):
+    from self6dpp_tpu_torch.models import layers as L
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    x, _ = _upsample_pair(cuda_device, shape, dtype)
+    tab = L.upsample_tables(shape[2], shape[3], dtype, x.device)
+    got = UC.upsample2x(x, tab)
+    torch.cuda.synchronize()
+    assert same_bits(got.float(), L.upsample2x_align_corners_plain(x).float())
+    assert torch.equal(L.upsample2x_align_corners(x), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_upsample2x_backward_gather_form(cuda_device, shape, dtype):
+    """The kernel equals the plain twin on the card (the same float32 sums
+    in the same order) and lies within one rounding to the dtype of the
+    same sums in float64; two runs agree bit for bit."""
+    from self6dpp_tpu_torch.models import layers as L
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    _, g = _upsample_pair(cuda_device, shape, dtype, seed=1)
+    tab = L.upsample_tables(shape[2], shape[3], dtype, g.device)
+    got = UC.upsample2x_bwd(g, tab)
+    again = UC.upsample2x_bwd(g, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, L.upsample2x_align_corners_bwd_plain(g, tab))
+    ref = L.upsample2x_align_corners_bwd_plain(g.double(), tab)
+    mag = L.upsample2x_align_corners_bwd_plain(g.double().abs(), tab)
+    rel = UP_BF16_REL if dtype == torch.bfloat16 else 2.0 ** -24
+    err = (got.double() - ref).abs()
+    assert bool((err <= rel * ref.abs() + UP_F32_SUM_REL * mag).all())
+
+
+@pytest.mark.cuda
+def test_upsample2x_autograd_counts_launches(cuda_device):
+    from self6dpp_tpu_torch.models import layers as L
+    from self6dpp_tpu_torch.ops import upsample_cuda as UC
+    x, g = _upsample_pair(cuda_device, (2, 8, 16, 16), torch.bfloat16, 2)
+    x.requires_grad_(True)
+    f0, b0 = UC.upsample2x.launches, UC.upsample2x_bwd.launches
+    y = L.upsample2x_align_corners(x)
+    assert (UC.upsample2x.launches, UC.upsample2x_bwd.launches) == (f0 + 1, b0)
+    y.backward(g)
+    assert (UC.upsample2x.launches, UC.upsample2x_bwd.launches) == (f0 + 1,
+                                                                    b0 + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, L.upsample2x_align_corners_bwd_plain(g))
+    with torch.no_grad():
+        L.Upsample2x("bilinear")(x)
+    assert UC.upsample2x.launches == f0 + 2
+
+
+@pytest.mark.cuda
+def test_upsample2x_rejects_bad_inputs(cuda_device):
+    from self6dpp_tpu_torch.models import layers as L
+    x = torch.randn((2, 8, 6, 6), device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        L.upsample2x_align_corners(x.half())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        L.upsample2x_align_corners(x.double())
+    with pytest.raises(ValueError, match="NCHW-contiguous"):
+        L.upsample2x_align_corners(
+            x.to(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="NCHW-contiguous"):
+        L.upsample2x_align_corners(x[:, :, :, :3])
+
+
 def test_build_names_nvcc_when_missing(monkeypatch):
     """Without nvcc the build says so; nothing is built at import."""
     from self6dpp_tpu_torch.kernels import build
