@@ -10,75 +10,34 @@ reference. On the first k seeds also the control, the reference computed
 one precision below the configuration's bfloat16 (its networks in bfloat16
 on float8 e4m3 matrix products and convolutions: `reference/steps.py`),
 against the same float32 reference; and on the first m seeds each fault
-the cell can have, planted in the program and read against the same
-reference: training cells, half of each batch left out with the loss's
-mean over the rest, and the solver's learning rate 1.3 times the
-configured one; refinement, one ROI's answer altered where it is produced
-(its refined rotation turned by 1 degree). A state left unchanged reads 1
-by the change's measure and needs no run. The benchmark's own runs never
-run this."""
+that the cell's kind names (its driver's `faults`, portbench/kinds/),
+planted in the program and read against the same reference: training
+cells, half of each batch left out with the loss's mean over the rest,
+and the solver's learning rate 1.3 times the configured one; refinement,
+one ROI's answer altered where it is produced (its refined rotation
+turned by 1 degree). A state left unchanged reads 1 by the change's
+measure and needs no run. The benchmark's own runs never run this."""
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
 
 import torch
 
-from . import cells, compare, harness, inputs
+from . import harness
 
 
-def half_batch(step):
-    """The training fault: each step sees the first half of its ROIs."""
-    def broken(state, batch, mark=None, **kw):
-        b = batch["roi_img"].shape[0]
-        return step(state, inputs.take_rows(batch, slice(0, b // 2)), mark,
-                    **kw)
-    return broken
-
-
-def turned_answer(step, degrees: float = 1.0):
-    """The refinement fault: the first ROI's rotation turned by `degrees`
-    about the camera's z axis where the answer is produced."""
-    def broken(batch):
-        out = dict(step(batch))
-        rot = out["rot"].clone()
-        a = math.radians(degrees)
-        turn = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
-                             [math.sin(a), math.cos(a), 0.0],
-                             [0.0, 0.0, 1.0]], device=rot.device)
-        rot[0] = turn @ rot[0]
-        out["rot"] = rot
-        return out
-    return broken
-
-
-def wrong_lr(step, factor: float = 1.3):
-    """A training fault in the solver: from the first step on, every
-    update taken at `factor` times the configured learning rate."""
-    def broken(state, batch, mark=None, **kw):
-        if not getattr(state.opt, "_lr_fault", False):
-            lr_fn = state.opt.lr_fn
-            state.opt.lr_fn = lambda count: factor * lr_fn(count)
-            state.opt._lr_fault = True
-        return step(state, batch, mark, **kw)
-    return broken
-
-
-FAULTS = {"gdrn_train": (("half_batch", half_batch), ("lr_x1.3", wrong_lr)),
-          "deepim_refine": (("turned_answer", turned_answer),)}
-
-
-def program_run(config, traffic, seed, device, wrap=None):
-    """A program's set-up (and a short window of requests), freed."""
-    cell = cells.make_cell(config, traffic, seed, device)
+def program_run(config, traffic, seed, device, wrap=None,
+                base: str = harness.HERE):
+    """A program's set-up (and what its kind runs to have readings),
+    freed."""
+    cell = harness.make_cell(config, traffic, seed, device, base)
     cell.setup(wrap)
-    if isinstance(cell, cells.DeepimRefine):
-        cell.run(traffic.get("calibrate_seconds", 3.0))
+    cell.calibration_window(traffic.get("calibrate_seconds", 3.0))
     cell.free_program()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -90,31 +49,13 @@ class Reference:
     gaps of any run of that seed to them."""
 
     def __init__(self, cell):
-        self.train = isinstance(cell, cells.GdrnTrain)
-        if self.train:
-            self.ref = cell.reference_readings()
-        else:
-            picked = cell.sample()
-            self.picked = [j for j, _, _ in picked]
-            self.cams = cell.cameras(picked)
-            self.ref = cell.reference_answers(picked)
+        self.ref = cell.reference()
 
     def numbers(self, cell) -> dict:
-        if self.train:
-            return compare.train_numbers(cell.readings, self.ref)
-        picked = cell.sample()
-        if [j for j, _, _ in picked] != self.picked:
-            raise RuntimeError("the run answered other requests")
-        return compare.pose_numbers([(r, t) for _, r, t in picked], self.ref,
-                                    self.cams)
+        return cell.gaps(self.ref)
 
     def control(self, cell) -> dict:
-        if self.train:
-            return compare.train_numbers(
-                cell.reference_readings(control=True), self.ref)
-        return compare.pose_numbers(
-            cell.reference_answers(cell.sample(), control=True), self.ref,
-            self.cams)
+        return cell.gaps(self.ref, cell.reference(control=True))
 
 
 def reading(cell, control_ref=False) -> dict:
@@ -135,7 +76,7 @@ def one_seed(config, traffic, seed, device, control: bool,
     if control:
         out["control"] = ref.control(cell)
     if faults:
-        for name, wrap in FAULTS[traffic["kind"]]:
+        for name, wrap in cell.faults:
             out[name] = ref.numbers(program_run(config, traffic, seed, device,
                                                 wrap))
     out["seed"], out["seconds"] = seed, time.perf_counter() - t0

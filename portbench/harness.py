@@ -4,12 +4,14 @@
 
 from the root of a checkout. BENCHMARK.json names the cell's configuration
 and traffic; the harness finds them as portbench/configs/<config>.json and
-portbench/traffic/<traffic>.json, and each per-layer metric's reader as
-portbench/metrics/<metric>.py (a `read(ctx)` that returns a number, or None
-when it finds nothing to read). The run builds the program from the seed
-(set-up), measures for --seconds, frees the program, checks what it
-produced against the plain reference, and prints one JSON line.
---trace 0 reports the cell's end-to-end metrics, --trace 1 its per-layer
+portbench/traffic/<traffic>.json, the driver of the traffic's kind as
+portbench/kinds/<kind>.py (cells.py::Driver), and each per-layer metric's
+reader as portbench/metrics/<metric>.py (a `read(ctx)` that returns a
+number, or None when it finds nothing to read). The run builds the program
+from the seed (set-up), measures for --seconds, frees the program, checks
+what it produced against the plain reference, and prints one JSON line.
+--trace 0 reports the cell's end-to-end metrics (set-up time and peak
+memory the harness's, the others the driver's), --trace 1 its per-layer
 metrics, the device's busy seconds and a breakdown.
 """
 
@@ -20,7 +22,6 @@ import importlib.util
 import json
 import math
 import os
-import statistics
 import sys
 import time
 
@@ -60,13 +61,31 @@ def cell_metrics(bench: dict, section: str, workload: str) -> list[dict]:
                                  else [])]
 
 
-def load_reader(name: str, base: str = HERE):
-    path = os.path.join(base, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+def load_module(base: str, folder: str, name: str):
+    """The file <base>/<folder>/<name>.py, run as a module of its own."""
+    path = os.path.join(base, folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {folder} file named {name!r}: {path}")
+    spec = importlib.util.spec_from_file_location("portbench_" + "".join(
+        c if c.isalnum() else "_" for c in f"{folder}/{name}"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, base: str = HERE):
+    return load_module(base, "metrics", name).read
+
+
+def load_kind(kind: str, base: str = HERE):
+    """The driver class of a traffic kind: kinds/<kind>.py's DRIVER."""
+    return load_module(base, "kinds", kind).DRIVER
+
+
+def make_cell(config: dict, traffic: dict, seed: int, device,
+              base: str = HERE):
+    return load_kind(traffic["kind"], base)(config, traffic, seed, device,
+                                            base)
 
 
 def banned_modules() -> list[str]:
@@ -92,15 +111,6 @@ class Context:
         self.__dict__.update(kw)
 
 
-def percentile(values: list[float], q: float) -> float:
-    """The q-quantile of values, linear between order statistics."""
-    v = sorted(values)
-    pos = q * (len(v) - 1)
-    lo = math.floor(pos)
-    hi = min(lo + 1, len(v) - 1)
-    return v[lo] + (v[hi] - v[lo]) * (pos - lo)
-
-
 def parse(argv):
     p = argparse.ArgumentParser(prog="python3 -m portbench")
     p.add_argument("--workload", required=True)
@@ -115,7 +125,7 @@ def main(argv=None, device=None, step_wrapper=None, bench=None,
     """The run; returns the exit code. Tests pass a CPU `device` (the run
     then skips the look for a card), a `step_wrapper` that breaks the timed
     path, and their own `bench` and `base` (the directory holding configs/,
-    traffic/ and metrics/)."""
+    traffic/, kinds/, metrics/ and reference/recipes/)."""
     args = parse(argv)
     root = root_dir()
     cache_dirs(root)
@@ -134,7 +144,7 @@ def main(argv=None, device=None, step_wrapper=None, bench=None,
     config = read_json(os.path.join(base, "configs", wl["config"] + ".json"))
     traffic = read_json(os.path.join(base, "traffic",
                                      wl["traffic"] + ".json"))
-    cell = cells.make_cell(config, traffic, args.seed, device)
+    cell = make_cell(config, traffic, args.seed, device, base)
     before = time.perf_counter() - START
     cell.setup(step_wrapper)
     setup_s = time.perf_counter() - START
@@ -163,14 +173,16 @@ def main(argv=None, device=None, step_wrapper=None, bench=None,
         if device.type == "cuda" else 0
     failed = res.get("failed", 0)
     if args.trace == 0:
-        values = {"setup_s": setup_s, "peak_mem_gib": peak / 2 ** 30}
-        if "latencies" in res:
-            lat = [x * 1e3 for x in res["latencies"]]
-            values["refine_ms_p50"] = statistics.median(lat)
-            values["refine_ms_p95"] = percentile(lat, 0.95)
-        else:
-            values["train_rois_per_s"] = res["work"] / res["seconds"]
-        for m in cell_metrics(bench, "end_to_end", wl["name"]):
+        values = dict(cell.end_to_end(res), setup_s=setup_s,
+                      peak_mem_gib=peak / 2 ** 30)
+        listed = cell_metrics(bench, "end_to_end", wl["name"])
+        missing = [m["name"] for m in listed if m["name"] not in values]
+        if missing:
+            print(f"portbench: the {traffic['kind']} driver gives no "
+                  f"{', '.join(missing)}, which BENCHMARK.json lists for "
+                  f"{wl['name']}", file=sys.stderr)
+            return 5
+        for m in listed:
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
 

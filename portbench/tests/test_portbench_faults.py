@@ -8,7 +8,8 @@ import math
 import pytest
 import torch
 
-from portbench import calibrate, cells, compare
+from portbench import calibrate, compare, harness
+from portbench.kinds import deepim_refine, gdrn_train
 from portbench.tests import tiny
 
 
@@ -32,8 +33,8 @@ def _state_tensors(state):
 
 
 @pytest.mark.parametrize("workload", ["t.selfsup", "t.supervised"])
-@pytest.mark.parametrize("fault", [unchanged, calibrate.half_batch,
-                                   calibrate.wrong_lr],
+@pytest.mark.parametrize("fault", [unchanged, gdrn_train.half_batch,
+                                   gdrn_train.wrong_lr],
                          ids=["unchanged", "half_batch", "wrong_lr"])
 def test_training_fault_is_not_correct(run, workload, fault):
     rc, res = run(workload, step_wrapper=fault)
@@ -47,7 +48,7 @@ def test_unchanged_state_reads_one_on_change(run):
 
 
 def test_altered_answer_is_not_correct(run):
-    rc, res = run("t.refine", step_wrapper=calibrate.turned_answer)
+    rc, res = run("t.refine", step_wrapper=deepim_refine.turned_answer)
     assert rc == 0
     assert res["correct"] is False
     assert res["checks"]["rot_gap_deg"]["value"] == pytest.approx(1.0,
@@ -61,11 +62,10 @@ def test_control_reads_above_the_limits(base, workload):
     c, t = tiny.CELLS[workload]
     config = read_json(os.path.join(base, "configs", c + ".json"))
     traffic = read_json(os.path.join(base, "traffic", t + ".json"))
-    cell = cells.make_cell(config, traffic, 3_000_000_023,
-                           torch.device("cpu"))
+    cell = harness.make_cell(config, traffic, 3_000_000_023,
+                             torch.device("cpu"), base)
     cell.setup()
-    if isinstance(cell, cells.DeepimRefine):
-        cell.run(0.5)
+    cell.calibration_window(0.5)
     cell.free_program()
     read = calibrate.reading(cell, control_ref=True)
     ok, _ = compare.judge(read["program"], traffic["limits"])

@@ -25,14 +25,14 @@ def test_port_matches_reference(run, workload):
 
 def test_same_seed_same_inputs(base):
     import torch
-    from portbench import cells
-    from portbench.harness import read_json
+    from portbench.harness import load_kind, read_json
     import os
     cfg = read_json(os.path.join(base, "configs", "tiny_gdrn.json"))
     tr = read_json(os.path.join(base, "traffic", "tiny_selfsup.json"))
-    a = cells.GdrnTrain(cfg, tr, 2 ** 31 + 5, torch.device("cpu"))._batches()
-    b = cells.GdrnTrain(cfg, tr, 2 ** 31 + 5, torch.device("cpu"))._batches()
-    c = cells.GdrnTrain(cfg, tr, 2 ** 31 + 6, torch.device("cpu"))._batches()
+    GdrnTrain = load_kind("gdrn_train", base)
+    a = GdrnTrain(cfg, tr, 2 ** 31 + 5, torch.device("cpu"))._batches()
+    b = GdrnTrain(cfg, tr, 2 ** 31 + 5, torch.device("cpu"))._batches()
+    c = GdrnTrain(cfg, tr, 2 ** 31 + 6, torch.device("cpu"))._batches()
     assert all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
     assert not torch.equal(a[0]["roi_img"], c[0]["roi_img"])
     assert a[0]["roi_img"].shape == c[0]["roi_img"].shape

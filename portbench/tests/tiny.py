@@ -1,6 +1,6 @@
 """Test-size cells of each traffic kind, written as files into a directory
-laid out as portbench/ is (configs/, traffic/, metrics/), with a bench
-dict naming them: what the tests drive on the CPU."""
+laid out as portbench/ is (configs/, traffic/, kinds/, metrics/), with a
+bench dict naming them: what the tests drive on the CPU."""
 
 from __future__ import annotations
 
@@ -63,14 +63,15 @@ def bench() -> dict:
 
 
 def write_base(root: str) -> str:
-    """The test cells' files under root; the benchmark's own metric readers
-    beside them."""
+    """The test cells' files under root; the benchmark's own kinds and
+    metric readers beside them."""
     for rel, data in FILES.items():
         path = os.path.join(root, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "w") as f:
             json.dump(data, f)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    shutil.copytree(os.path.join(here, "metrics"),
-                    os.path.join(root, "metrics"), dirs_exist_ok=True)
+    for folder in ("kinds", "metrics"):
+        shutil.copytree(os.path.join(here, folder),
+                        os.path.join(root, folder), dirs_exist_ok=True)
     return root
