@@ -272,7 +272,8 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
     when given; with split_lab, LAB's weight at 0 and its term from
     lab_linear alone; the RepjRefiner terms with repj_refine). Returns
     (losses, render, pseudo labels). mark(name) is called after each phase
-    (see gdrn_engine.event_marker)."""
+    (see gdrn_engine.event_marker), the refiner's own phases (render,
+    network_fwd, each iteration) included."""
     ss = cfg.self_sup
     ss_loss = dataclasses.replace(ss, lab_lw=0.0) if split_lab else ss
     out, tout = student_teacher(cfg, state, batch, mark)
@@ -283,7 +284,7 @@ def forward_losses(cfg: Config, state: TrainState, batch: dict[str, Tensor],
         # a step that takes gradients
         with span("refine"), torch.no_grad():
             p_rot, p_trans = refine(refiner_batch(batch, pseudo_vis), p_rot,
-                                    p_trans)
+                                    p_trans, mark)
         mark("refine")
     pseudo = {"vis_mask": pseudo_vis, "vis_mask_lr": pseudo_vis_lr,
               "coor": tout["coor"],
@@ -314,8 +315,9 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
                          split_lab: bool = False, impl: str = "kernel",
                          ema_update_every: int = 1,
                          refiner: tuple[DeepIM, Config] | None = None):
-    """Returns train_step(state, batch, mark=None, lab_linear=None) ->
-    (state, metrics): one pose-mode step, updating the state in place.
+    """Returns train_step(state, batch, mark=None, lab_linear=None,
+    pseudo_out=None) -> (state, metrics): one pose-mode step, updating the
+    state in place.
     lpips: a frozen LPIPS (build_lpips), or None to leave the perceptual
     term out, as the JAX step does without lpips_params. split_lab: LAB's
     weight at 0 in the loss; its value and image gradient come, if at all,
@@ -328,7 +330,10 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
     gdrn_engine.event_marker). The teacher follows the student every
     ema_update_every steps. refiner: (a DeepIM in eval mode, its Config),
     which refines the pseudo pose by its n_iter_test iterations when
-    self_sup.refine_with_deepim (its renders follow impl)."""
+    self_sup.refine_with_deepim (its renders follow impl). pseudo_out, if
+    given, is a dict that receives the step's pseudo pose as "rot"
+    (B,3,3) and "trans" (B,3), after the refiner when there is one: the
+    tensors the labels read, on the device, without a synchronisation."""
     ss = cfg.self_sup
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl: {impl!r}")
@@ -348,11 +353,15 @@ def make_self_train_step(cfg: Config, model: GDRN, lpips: LPIPS | None = None,
         raise ValueError(f"input_res {s} is not a multiple of output_res {o}")
 
     def train_step(state: TrainState, batch: dict[str, Tensor], mark=None,
-                   lab_linear=None, extra_grads=None):
+                   lab_linear=None, extra_grads=None, pseudo_out=None):
         mark = mark or no_mark
         with span("train_step", root=True):
-            ld, _, _ = forward_losses(cfg, state, batch, impl, mark, lpips,
-                                      split_lab, lab_linear, refine)
+            ld, ren, pseudo = forward_losses(cfg, state, batch, impl, mark,
+                                             lpips, split_lab, lab_linear,
+                                             refine)
+            del ren     # not held through the backward
+            if pseudo_out is not None:
+                pseudo_out.update(rot=pseudo["rot"], trans=pseudo["trans"])
             return descend(state, ld, decay_fn, mark, extra_grads)
 
     return train_step
@@ -430,8 +439,9 @@ def build_self_train_step(cfg: Config, model: GDRN,
                           ema_update_every: int = 1,
                           refiner: tuple[DeepIM, Config] | None = None):
     """The pose step for cfg.self_sup.lab_impl, routed as the JAX
-    package's jit_self_train_step routes it: step(state, batch, mark=None)
-    -> (state, metrics). 'direct', 'surrogate' and 'pallas' are
+    package's jit_self_train_step routes it: step(state, batch, mark=None,
+    pseudo_out=None) -> (state, metrics) (pseudo_out as
+    make_self_train_step's). 'direct', 'surrogate' and 'pallas' are
     make_self_train_step's step; 'pixel_split' runs make_lab_fwd_fn and
     make_lab_pixel_fn first and feeds their (value, g) as lab_linear;
     'split_grad' runs make_lab_grad_fn first, adds its gradients to the
@@ -447,20 +457,22 @@ def build_self_train_step(cfg: Config, model: GDRN,
     if mode == "pixel_split":
         fwd, pix = make_lab_fwd_fn(cfg, model, impl), make_lab_pixel_fn(cfg)
 
-        def pixel_split_step(state, batch, mark=None):
+        def pixel_split_step(state, batch, mark=None, pseudo_out=None):
             with span("train_step", root=True):
                 ren, vis = fwd(state, batch)
                 return step(state, batch, mark,
-                            lab_linear=pix(ren, batch["roi_img"], vis))
+                            lab_linear=pix(ren, batch["roi_img"], vis),
+                            pseudo_out=pseudo_out)
 
         return pixel_split_step
     if mode == "split_grad":
         lab_grad = make_lab_grad_fn(cfg, model, impl)
 
-        def split_grad_step(state, batch, mark=None):
+        def split_grad_step(state, batch, mark=None, pseudo_out=None):
             with span("train_step", root=True):
                 val, grads = lab_grad(state, batch)
-                state, metrics = step(state, batch, mark, extra_grads=grads)
+                state, metrics = step(state, batch, mark, extra_grads=grads,
+                                      pseudo_out=pseudo_out)
             metrics["loss_color_ab_obj"] = val
             metrics["total_loss"] = metrics["total_loss"] + val
             return state, metrics
